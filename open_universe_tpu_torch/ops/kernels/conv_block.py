@@ -1,0 +1,163 @@
+"""Fused UNIVERSE ConvBlock conv chain: CUDA kernel, wrapper, plain version.
+
+The chain (JAX: ``ops/pallas/conv_block.py``, our ``nn/blocks.py``)
+
+    cond_out = conv5(prelu1(h)) + b5
+    c        = film((cond_out [+ input_cond]) * sqrt(1/2), noise_cond)
+    v        = (h + conv3b(prelu3(conv3a(prelu2(c))))) * sqrt(1/2)
+
+runs in one launch of ``csrc/conv_block.cu`` on a CUDA tensor, and as
+``fused_conv_chain_reference`` on a CPU tensor.  Both take folded weights in
+the JAX layout (K, Cin, Cout) and h's dtype, the three PReLU slopes in
+float32 (as the JAX kernel takes them), h in (B, T, C), and return
+(v, cond_out).
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import build
+
+SQRT_HALF = 1.0 / math.sqrt(2.0)
+WIDTHS = (32, 64, 128, 256, 512)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# kernel launches (the plain version is none), in all and by
+# (C, T, with FiLM, with cond)
+launches = 0
+launches_by_shape: collections.Counter = collections.Counter()
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("conv_block")
+    fn = lib.ou_conv_block
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 14
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    return lib
+
+
+def _check(h, weights, noise_cond, input_cond):
+    if h.dim() != 3:
+        raise ValueError(f"h must be (B, T, C), got shape {tuple(h.shape)}")
+    b, t, c = h.shape
+    if h.dtype not in _DTYPES:
+        raise TypeError(f"fused_conv_chain takes float32 or bfloat16, not {h.dtype}")
+    if c not in WIDTHS:
+        raise ValueError(f"fused_conv_chain has no kernel for C={c}; widths {WIDTHS}")
+    if t < 1 or not 1 <= b <= 65535:
+        raise ValueError(f"fused_conv_chain needs T >= 1 and 1 <= B <= 65535, got {b, t}")
+    shapes = {"w5": (5, c, c), "b5": (c,), "a1": None, "w3a": (3, c, c),
+              "b3a": (c,), "a2": None, "w3b": (3, c, c), "b3b": (c,), "a3": None,
+              "noise_cond": (b, 2 * c), "input_cond": (b, t, c)}
+    named = dict(zip(shapes, weights + (noise_cond, input_cond)))
+    named["h"] = h
+    for name, x in named.items():
+        if x is None:
+            continue
+        want = shapes.get(name)
+        if name in ("a1", "a2", "a3"):
+            if x.numel() != 1:
+                raise ValueError(f"{name}: one PReLU slope expected, got {x.numel()}")
+        elif want is not None and tuple(x.shape) != want:
+            raise ValueError(f"{name}: expected shape {want}, got {tuple(x.shape)}")
+        if x.device != h.device:
+            raise ValueError(f"{name} is on {x.device}, h on {h.device}")
+        want_dtype = torch.float32 if name in ("a1", "a2", "a3") else h.dtype
+        if x.dtype != want_dtype:
+            raise TypeError(f"{name} is {x.dtype}, expected {want_dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if name in ("w5", "w3a", "w3b") and x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def fused_conv_chain(
+    h: torch.Tensor,
+    w5: torch.Tensor, b5: torch.Tensor, a1: torch.Tensor,
+    w3a: torch.Tensor, b3a: torch.Tensor, a2: torch.Tensor,
+    w3b: torch.Tensor, b3b: torch.Tensor, a3: torch.Tensor,
+    noise_cond: Optional[torch.Tensor] = None,
+    input_cond: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused conv5 -> (cond/FiLM) -> conv3 -> conv3 -> residual.
+
+    h: (B, T, C); w5: (5, C, C); w3a/w3b: (3, C, C); biases (C,); a1..a3
+    single float32 PReLU slopes; noise_cond: (B, 2C) FiLM source;
+    input_cond: (B, T, C) additive signal conditioning.  Every tensor is
+    contiguous and on h's device, and all but the slopes have h's dtype
+    (float32 or bfloat16).  Returns (v, cond_out).
+    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
+    or raises.
+    """
+    weights = (w5, b5, a1, w3a, b3a, a2, w3b, b3b, a3)
+    if h.device.type == "cpu":
+        return fused_conv_chain_reference(h, *weights, noise_cond=noise_cond,
+                                          input_cond=input_cond)
+    if h.device.type != "cuda":
+        raise ValueError(f"fused_conv_chain runs on cpu or cuda, not {h.device}")
+    _check(h, weights, noise_cond, input_cond)
+    b, t, c = h.shape
+    v = torch.empty_like(h)
+    cond_out = torch.empty_like(h)
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        err = _lib().ou_conv_block(
+            _DTYPES[h.dtype], h.data_ptr(),
+            *(x.data_ptr() for x in weights),
+            noise_cond.data_ptr() if noise_cond is not None else None,
+            input_cond.data_ptr() if input_cond is not None else None,
+            v.data_ptr(), cond_out.data_ptr(), b, t, c, stream)
+    if err != 0:
+        raise RuntimeError(f"conv_block kernel launch failed: cudaError_t {err}")
+    global launches
+    launches += 1
+    launches_by_shape[(c, t, noise_cond is not None, input_cond is not None)] += 1
+    return v, cond_out
+
+
+def fused_conv_chain_reference(
+    h: torch.Tensor,
+    w5: torch.Tensor, b5: torch.Tensor, a1: torch.Tensor,
+    w3a: torch.Tensor, b3a: torch.Tensor, a2: torch.Tensor,
+    w3b: torch.Tensor, b3b: torch.Tensor, a3: torch.Tensor,
+    noise_cond: Optional[torch.Tensor] = None,
+    input_cond: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the kernel, with its rounding points: sums in
+    float32, values rounded to h's dtype after FiLM, after each PReLU
+    product (slope in float32) and after conv3a."""
+    dtype = h.dtype
+    f32 = torch.float32
+
+    def rnd(x):
+        return x.to(dtype).to(f32)
+
+    def prelu(x, a):
+        return torch.where(x >= 0, x, rnd(a.reshape(()).to(f32) * x))
+
+    def conv(x, w, bias):
+        y = F.conv1d(x.transpose(1, 2), w.to(f32).permute(2, 1, 0),
+                     bias.to(f32), padding=w.shape[0] // 2)
+        return y.transpose(1, 2)
+
+    hf = h.to(f32)
+    cond_out = conv(prelu(hf, a1), w5, b5)
+    c = cond_out
+    if input_cond is not None:
+        c = (c + input_cond.to(f32)) * SQRT_HALF
+    if noise_cond is not None:
+        n = h.shape[-1]
+        nc = noise_cond.to(f32)[:, None, :]
+        c = nc[..., :n] * c + nc[..., n:]
+    c = prelu(rnd(c), a2)
+    c = prelu(rnd(conv(c, w3a, b3a)), a3)
+    v = (hf + conv(c, w3b, b3b)) * SQRT_HALF
+    return v.to(dtype), cond_out.to(dtype)

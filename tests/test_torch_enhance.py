@@ -1,0 +1,155 @@
+"""The PyTorch port's ``Universe.enhance`` against the JAX package's, on the
+CPU at float32, given the same weights and the same noise draws.
+
+Small config of both packages' classes: rate factors [2, 4], 8 channels,
+batch 2, 640 samples, 3 steps.  The EDM fast path and the generic score path
+run with weight norm folded on both sides (the port's ConvBlocks then take
+the fused kernel's plain version) and unfolded (the unfused chain).  Bound:
+2e-5, the sampler-golden bound of PARITY.md.
+"""
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from open_universe_tpu.inference.torch_convert import (  # noqa: E402
+    fold_weight_norm as jax_fold,
+)
+from open_universe_tpu.models.condition import ConditionerNetwork as JaxCond  # noqa: E402
+from open_universe_tpu.models.score import ScoreNetwork as JaxScore  # noqa: E402
+from open_universe_tpu.models.universe import Universe as JaxUniverse  # noqa: E402
+from open_universe_tpu_torch.models.condition import ConditionerNetwork  # noqa: E402
+from open_universe_tpu_torch.models.score import ScoreNetwork  # noqa: E402
+from open_universe_tpu_torch.models.universe import Universe  # noqa: E402
+from open_universe_tpu_torch.ops.kernels import conv_block  # noqa: E402
+from open_universe_tpu_torch.utils.convert import (  # noqa: E402
+    fold_weight_norm,
+    from_jax_params,
+)
+
+TOL = 2e-5
+B, T, N_STEPS = 2, 640, 3
+T_PADDED = 648  # Universe.pad adds a full period (8) to a multiple of 8
+
+_SCORE = dict(rate_factors=[2, 4], n_channels=8, noise_cond_dim=32,
+              extra_conv_block=True, use_weight_norm=True, use_antialiasing=True,
+              time_embedding="simple")
+_COND = dict(rate_factors=[2, 4], n_channels=8, n_mels=16, n_mel_oversample=4,
+             encoder_gru_residual=True, extra_conv_block=True,
+             use_weight_norm=True)
+# ConvBlock calls per enhance: 6 per score pass, 10 in the conditioner
+CHAIN_CALLS = 6 * N_STEPS + 10
+
+
+def _universe_kwargs(edm):
+    return dict(fs=16000, normalization_norm=2,
+                normalization_kwargs={"ref": "both", "level_db": -26.0},
+                diffusion={"schedule": "geometric", "sigma_min": 5e-4,
+                           "sigma_max": 5.0, "n_steps": N_STEPS, "epsilon": 1.3},
+                edm={"noise": 0.25} if edm else None)
+
+
+def _jax_params(model, seed=0):
+    """Numpy-drawn weights in the JAX tree's structure (uniform, scaled by
+    1/sqrt(fan_in))."""
+    rng = np.random.default_rng(seed)
+
+    def draw(s):
+        scale = 1.0 / np.sqrt(np.prod(s.shape[:-1])) if len(s.shape) > 1 else 0.5
+        return (rng.uniform(-1.0, 1.0, s.shape) * scale).astype(np.float32)
+
+    key = jax.random.key(0)
+    return {name: jax.tree_util.tree_map(
+                draw, jax.eval_shape(getattr(model, name).init, key))
+            for name in ("score_model", "condition_model")}
+
+
+def _jax_noise(key, n_loop):
+    """JAX's draws (models/universe.py:565-577,608): the initial one, then
+    the step-i draw from step_keys[n_loop + i]."""
+    shape = (B, T_PADDED, 1)
+    k_init, k_loop = jax.random.split(key)
+    step_keys = jax.random.split(k_loop, 2 * n_loop + 1)
+    return [np.array(jax.random.normal(k_init, shape))] + [
+        np.array(jax.random.normal(step_keys[n_loop + i], shape))
+        for i in range(n_loop)]
+
+
+@pytest.mark.parametrize("edm,fold", [(True, True), (False, True), (True, False)])
+def test_enhance_matches_jax(monkeypatch, record_property, edm, fold):
+    jm = JaxUniverse(score_model=JaxScore(**_SCORE),
+                     condition_model=JaxCond(**_COND),
+                     losses={"weights": {"score": 1.0}}, **_universe_kwargs(edm))
+    params = _jax_params(jm)
+    if fold:
+        params = jax.tree_util.tree_map(
+            np.asarray, jax.jit(lambda p: jax_fold(jm, p))(params))
+    mix = np.random.default_rng(1).standard_normal((B, T)).astype(np.float32) * 0.1
+    key = jax.random.key(1)
+    ref = np.asarray(jax.jit(lambda p, m: jm.enhance(
+        p, m, key=key, n_steps=N_STEPS, packed=False))(params, jnp.asarray(mix)))
+
+    pm = Universe(score_model=ScoreNetwork(**_SCORE),
+                  condition_model=ConditionerNetwork(**_COND),
+                  **_universe_kwargs(edm))
+    if fold:
+        fold_weight_norm(pm)
+    assert from_jax_params(pm, params) == []
+
+    calls = []
+    real = conv_block.fused_conv_chain_reference
+    monkeypatch.setattr(conv_block, "fused_conv_chain_reference",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    out = pm.enhance(mix, n_steps=N_STEPS, noise=_jax_noise(key, N_STEPS - 1))
+    assert len(calls) == (CHAIN_CALLS if fold else 0)
+    assert out.shape == (B, T) and torch.isfinite(out).all()
+    record_property("max_abs_diff", float(np.abs(out.numpy() - ref).max()))
+    np.testing.assert_allclose(out.numpy(), ref, atol=TOL, rtol=0)
+
+
+def test_main_path_imports_no_jax():
+    """The port's main path, run end to end on the CPU, loads neither jax nor
+    any module of the JAX package."""
+    code = textwrap.dedent(f"""
+        import sys
+        import torch
+        from open_universe_tpu_torch.models.condition import ConditionerNetwork
+        from open_universe_tpu_torch.models.presets import universepp
+        from open_universe_tpu_torch.models.score import ScoreNetwork
+        from open_universe_tpu_torch.models.universe_gan import UniverseGAN
+        from open_universe_tpu_torch.nn.layers import init_weights
+        from open_universe_tpu_torch.utils.convert import fold_weight_norm
+
+        model = UniverseGAN(score_model=ScoreNetwork(**{_SCORE!r}),
+                            condition_model=ConditionerNetwork(**{_COND!r}),
+                            edm={{"noise": 0.25}})
+        fold_weight_norm(init_weights(model, seed=0))
+        mix = torch.randn(2, 640, generator=torch.Generator().manual_seed(0))
+        out = model.enhance(mix * 0.1, n_steps=3,
+                            generator=torch.Generator().manual_seed(1))
+        assert out.shape == (2, 640) and bool(torch.isfinite(out).all())
+        if not torch.cuda.is_available():
+            try:  # entry points run on CUDA unless asked for the CPU
+                universepp()
+            except RuntimeError:
+                pass
+            else:
+                raise AssertionError("universepp() ran without a GPU")
+        loaded = [m for m in sys.modules
+                  if m == "jax" or m.startswith(("jax.", "open_universe_tpu."))
+                  or m == "open_universe_tpu"]
+        assert not loaded, loaded
+        print("ok")
+    """)
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip().endswith("ok")

@@ -9,18 +9,36 @@ Phases, each of which raises (exit code != 0) on failure:
 2. Hold the fused ConvBlock kernel against its plain PyTorch version on the
    card, at every width of the UNIVERSE++ 16 kHz path (C = 32..512) and the
    lengths that path gives it, FiLM and cond on and off, float32 and bf16.
+2b. The same for the kernel's rows entry (``fused_conv_chain_rows``) on
+   lane-packed rows (B, T/P, P*C), P = max(1, 128 // C), at the main path's
+   row counts and at T = 5P.
 3. Run the main path at full width: ``universepp(16000)`` with seeded random
    weights, weight norm folded, ``enhance`` on 2 x 2 s at 16 kHz, 8 steps,
    float32, once through the kernel and once through the unfused chain, on
-   the same noise.  The kernel run must launch the kernel 94 times and both
-   must agree.  The launches are counted by (C, T, FiLM, cond).
+   the same noise.  Both must agree, and the kernel run must launch the
+   kernel 94 times: at this batch (<= 64) through the rows entry at
+   C < 128 and through the unpacked entry at C >= 128.  The launches are
+   counted by (entry, C, T, FiLM, cond).
 4. Time ``enhance`` in bench.py's setting (bf16 networks, batch 128 x 2 s,
-   8 steps) with the kernel and with the unfused chain; then time the
-   kernel, its plain version and the unfused chain alone at each (C, T,
-   FiLM, cond) that phase 3 launched, and weight each by its launches.
-5. Trace one ``enhance`` each way in that setting with ``torch.profiler``:
-   device time by kernel group and under a few PyTorch ops, device busy
-   time and idle share.
+   8 steps, every block through the unpacked entry) with the kernel and with
+   the unfused chain; then time the kernel, its plain version and the
+   unfused chain alone at each (C, T, FiLM, cond) that phase 3 launched,
+   and weight each by its launches.
+4b. Time bf16 ``enhance`` on 2 s clips at batch 1 and 16; then the rows
+   entry, its plain version and the unfused chain alone at each rows shape
+   of phase 3 at batch 16, weighted by launches.
+5. Trace one ``enhance`` each way in the batch-128 setting with
+   ``torch.profiler``: device time by kernel group and under a few PyTorch
+   ops, device busy time and idle share; then one ``enhance`` at batch 1.
+6. Serve: write a reference-layout checkpoint of the seeded model (weight
+   norm unfolded, an EMA shadow that differs from the raw weights, the
+   model node of ``config/model/default.yaml``), ``load_model`` it onto the
+   card, start the HTTP server (max batch 16, 50 ms window, 1 s buckets,
+   2 s warm-up grid), and check: a lone 2 s request equals ``enhance`` of
+   its bucket-padded batch with the service generator's state; 12
+   concurrent requests (13 clips, one stereo) all answer 200 with their
+   shape; ``/stats`` counts every clip; the rows entry launched.  Then 5
+   lone 2 s requests give the serving latency.
 
 The last two lines are a JSON object with one entry per kernel and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
@@ -28,19 +46,29 @@ and prints no result.
 """
 from __future__ import annotations
 
+import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.request
+import wave
 
+import numpy as np
 import torch
 
 FS = 16000
 CLIP_S = 2.0
+DEVICE = "cuda"
+BUCKET_S = 1.0  # the server's length buckets
 N_STEPS = 8
 TIMING_BATCH = 128
+SERVE_BATCH = 16
 WIDTH_LENGTHS = {32: 32160, 64: 16080, 128: 4020, 256: 1005, 512: 201}
 # ConvBlocks per enhance with 8 steps: 10 per score pass, 14 in the conditioner
 PATH_LAUNCHES = 10 * N_STEPS + 14
@@ -96,11 +124,11 @@ def chain_inputs(b, t, c, dtype, film, cond, seed=0):
     g = torch.Generator().manual_seed(seed)
 
     def rand(*shape, scale=1.0):
-        return ((torch.rand(shape, generator=g) * 2 - 1) * scale).to("cuda", dtype)
+        return ((torch.rand(shape, generator=g) * 2 - 1) * scale).to(DEVICE, dtype)
 
     weights = []
     for k in (5, 3, 3):
-        slope = (torch.rand(1, generator=g) * 0.5).to("cuda")  # float32
+        slope = (torch.rand(1, generator=g) * 0.5).to(DEVICE)  # float32
         weights += [rand(k, c, c, scale=1 / math.sqrt(k * c)), rand(c, scale=0.5),
                     slope]
     h = rand(b, t, c)
@@ -124,65 +152,100 @@ def phase_build():
         f"cuda {torch.version.cuda}")
 
 
-def phase_kernel_vs_plain():
-    """Returns the largest max|kernel - plain| over the cases."""
+def by_entry(counts) -> dict:
+    """Launches by entry name, from counts keyed by (entry, C, T, FiLM, cond)."""
+    out = {}
+    for (entry, *_), n in counts.items():
+        out[entry] = out.get(entry, 0) + n
+    return out
+
+
+def by_shape(counts, entry=None) -> dict:
+    """Launches by (C, T, FiLM, cond), of one entry or of all."""
+    out = {}
+    for (e, *shape), n in counts.items():
+        if entry in (None, e):
+            out[tuple(shape)] = out.get(tuple(shape), 0) + n
+    return out
+
+
+def pack(x, c):
+    """(B, T, C) -> lane-packed rows (B, T/P, P*C)."""
+    return None if x is None else x.reshape(x.shape[0], -1, c * max(1, 128 // c))
+
+
+def phase_kernel_vs_plain(rows: bool = False):
+    """Returns the largest max|kernel - plain| over the cases, for the
+    unpacked entry or (rows=True) the rows entry at T = rows * P."""
     from open_universe_tpu_torch.ops.kernels import conv_block
 
+    tag = "rows" if rows else "kernel"
     worst = 0.0
     for c, t_main in WIDTH_LENGTHS.items():
+        p = max(1, 128 // c)
+        t_short = 5 * p if rows else 5  # shorter than a tile
         cases = [(t_main, True, True, torch.float32),
                  (t_main, False, False, torch.float32),
                  (t_main, True, False, torch.bfloat16),
                  (t_main, True, True, torch.bfloat16),
-                 (5, True, True, torch.float32),       # shorter than a tile
-                 (5, False, True, torch.bfloat16)]
+                 (t_short, True, True, torch.float32),
+                 (t_short, False, True, torch.bfloat16)]
         for t, film, cond, dtype in cases:
             h, weights, nc, ic = chain_inputs(2, t, c, dtype, film, cond, seed=c + t)
-            got = conv_block.fused_conv_chain(h, *weights, noise_cond=nc,
-                                              input_cond=ic)
-            torch.cuda.synchronize()
-            ref = conv_block.fused_conv_chain_reference(h, *weights, noise_cond=nc,
-                                                        input_cond=ic)
+            if rows:
+                got = conv_block.fused_conv_chain_rows(
+                    pack(h, c), p, c, *weights, noise_cond=nc, input_cond_rows=pack(ic, c))
+                torch.cuda.synchronize()
+                ref = conv_block.fused_conv_chain_rows_reference(
+                    pack(h, c), p, c, *weights, noise_cond=nc, input_cond_rows=pack(ic, c))
+            else:
+                got = conv_block.fused_conv_chain(h, *weights, noise_cond=nc,
+                                                  input_cond=ic)
+                torch.cuda.synchronize()
+                ref = conv_block.fused_conv_chain_reference(h, *weights, noise_cond=nc,
+                                                            input_cond=ic)
             for name, a, r in zip(("v", "cond_out"), got, ref):
+                if a.shape != r.shape:
+                    raise AssertionError(f"{tag}: shape {tuple(a.shape)} != {tuple(r.shape)}")
                 err = (a.float() - r.float()).abs().max().item()
                 scale = r.float().abs().max().item()
                 ok = math.isfinite(err) and err <= TOL[dtype] * scale
-                log(f"[kernel] C={c:3d} T={t:5d} film={film:d} cond={cond:d} "
+                log(f"[{tag}] C={c:3d} T={t:5d} film={film:d} cond={cond:d} "
                     f"{str(dtype)[6:]:8s} {name:8s} max|d|={err:.3e} "
                     f"max|ref|={scale:.3e} {'ok' if ok else 'FAIL'}")
                 if not ok:
-                    raise AssertionError(f"kernel disagrees with its plain version "
-                                         f"at C={c} T={t} {dtype} ({name})")
+                    raise AssertionError(f"{tag} kernel disagrees with its plain "
+                                         f"version at C={c} T={t} {dtype} ({name})")
                 worst = max(worst, err)
     return worst
 
 
 def noise_draws(model, b, t, seed):
     """The sampler's N_STEPS standard-normal draws for a (b, t) input."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
     shape = (b, t + model.tot_ds - t % model.tot_ds, 1)
-    return [torch.randn(shape, generator=g, device="cuda") for _ in range(N_STEPS)]
+    return [torch.randn(shape, generator=g, device=DEVICE) for _ in range(N_STEPS)]
 
 
 def phase_main_path():
-    """Full-width enhance through the kernel and through the unfused chain."""
+    """Full-width enhance through the kernel and through the unfused chain;
+    returns the model and the kernel run's launch counts."""
     from open_universe_tpu_torch.models.presets import universepp
     from open_universe_tpu_torch.ops import kernels
     from open_universe_tpu_torch.ops.kernels import conv_block
     from open_universe_tpu_torch.utils.convert import fold_weight_norm
 
-    model = fold_weight_norm(universepp(FS, device="cuda", seed=0))
+    model = fold_weight_norm(universepp(FS, device=DEVICE, seed=0))
     t = int(CLIP_S * FS)
-    g = torch.Generator(device="cuda").manual_seed(1)
-    mix = torch.randn(2, t, generator=g, device="cuda") * 0.05
+    g = torch.Generator(device=DEVICE).manual_seed(1)
+    mix = torch.randn(2, t, generator=g, device=DEVICE) * 0.05
     noise = noise_draws(model, 2, t, seed=2)
 
-    conv_block.launches = 0
-    conv_block.launches_by_shape.clear()
+    conv_block.launches.clear()
     out_k = model.enhance(mix, n_steps=N_STEPS, noise=noise)
     torch.cuda.synchronize()
-    launches = conv_block.launches
-    by_shape = dict(conv_block.launches_by_shape)
+    counts = dict(conv_block.launches)
+    launches = sum(counts.values())
     kernels.enable(False)
     try:
         out_u = model.enhance(mix, n_steps=N_STEPS, noise=noise)
@@ -191,23 +254,29 @@ def phase_main_path():
     torch.cuda.synchronize()
     diff = (out_k - out_u).abs().max().item()
     log(f"[main] enhance (2, {t}) -> {tuple(out_k.shape)}: kernel launches "
-        f"{launches}, max|kernel - unfused| = {diff:.3e}, "
+        f"{launches} {by_entry(counts)}, max|kernel - unfused| = {diff:.3e}, "
         f"max|out| = {out_k.abs().max().item():.3e}")
-    for (c, t_c, film, cond), n in sorted(by_shape.items()):
-        log(f"[main]   C={c:3d} T={t_c:5d} film={film:d} cond={cond:d}: {n} launches")
+    for (entry, c, t_c, film, cond), n in sorted(counts.items()):
+        log(f"[main]   {entry:22s} C={c:3d} T={t_c:5d} film={film:d} cond={cond:d}: "
+            f"{n} launches")
     if tuple(out_k.shape) != (2, t) or not torch.isfinite(out_k).all():
         raise AssertionError("enhance output has the wrong shape or is not finite")
-    if launches != PATH_LAUNCHES or sum(by_shape.values()) != launches:
-        raise AssertionError(f"expected {PATH_LAUNCHES} kernel launches, counted "
-                             f"{launches} ({sum(by_shape.values())} by shape)")
-    if {c for c, *_ in by_shape} != set(WIDTH_LENGTHS):
-        raise AssertionError(f"kernel launched at widths {sorted(by_shape)}")
+    if launches != PATH_LAUNCHES:
+        raise AssertionError(f"expected {PATH_LAUNCHES} kernel launches, counted {launches}")
+    if {c for _, c, *_ in counts} != set(WIDTH_LENGTHS):
+        raise AssertionError(f"kernel launched at widths {sorted(counts)}")
+    # nn/blocks.py: batch <= 64 takes the rows entry where P = 128 // C > 1
+    wrong = [k for k in counts
+             if (k[0] == "fused_conv_chain_rows") != (k[1] < 128)]
+    if wrong or len(by_entry(counts)) != 2:
+        raise AssertionError(f"launches split between the entries as {counts}")
     if not diff <= 1e-4:
         raise AssertionError(f"kernel path and unfused chain differ by {diff}")
-    return model, launches, by_shape
+    return model, counts
 
 
 def timed_enhance(model, mix, noise, fused: bool):
+    """Median wall time of bf16 enhance over 5 runs after 2 warm-ups."""
     from open_universe_tpu_torch.ops import kernels
 
     kernels.enable(fused)
@@ -227,18 +296,78 @@ def timed_enhance(model, mix, noise, fused: bool):
     return times[len(times) // 2]
 
 
-def phase_timing(model, by_shape):
-    """End-to-end audio-s/s both ways, then each launched shape alone."""
+def chain_bound(batch, t, c, dtype, tensors):
+    """(bytes ms, operations ms): each input read once, v and cond_out
+    written once, over 3.35 TB/s; 22 B T C^2 FLOPs over the dtype's peak."""
+    moved = sum(x.numel() * x.element_size() for x in tensors if x is not None) \
+        + 2 * batch * t * c * torch.finfo(dtype).bits // 8
+    return moved / PEAK_BYTES_PER_S * 1e3, 22.0 * batch * t * c * c / PEAK_FLOPS[dtype] * 1e3
+
+
+def time_shapes(shape_counts, batch, rows=False):
+    """The kernel entry, its plain version and the unfused chain alone at
+    each (C, T, FiLM, cond) of shape_counts, bf16, at this batch; one dict
+    per shape with its launches and bounds."""
     from open_universe_tpu_torch.nn.blocks import ConvBlock
     from open_universe_tpu_torch.nn.layers import init_weights
     from open_universe_tpu_torch.ops import kernels
     from open_universe_tpu_torch.ops.kernels import conv_block
     from open_universe_tpu_torch.utils.convert import fold_weight_norm
 
+    dtype = torch.bfloat16
+    shapes = []
+    for (c, t_c, film, cond), n in sorted(shape_counts.items()):
+        p = max(1, 128 // c)
+        h, weights, nc, ic = chain_inputs(batch, t_c, c, dtype, film, cond)
+        hr, icr = pack(h, c), pack(ic, c)
+        block = fold_weight_norm(init_weights(ConvBlock(c, weight_norm=True))).to(DEVICE)
+        if rows:
+            def kernel():
+                conv_block.fused_conv_chain_rows(hr, p, c, *weights, noise_cond=nc,
+                                                 input_cond_rows=icr)
+
+            def plain():
+                conv_block.fused_conv_chain_rows_reference(
+                    hr, p, c, *weights, noise_cond=nc, input_cond_rows=icr)
+        else:
+            def kernel():
+                conv_block.fused_conv_chain(h, *weights, noise_cond=nc, input_cond=ic)
+
+            def plain():
+                conv_block.fused_conv_chain_reference(h, *weights, noise_cond=nc,
+                                                      input_cond=ic)
+
+        def unfused():
+            block(h, noise_cond=nc, input_cond=ic)
+
+        ms, plain_ms = cuda_ms(kernel, 10), cuda_ms(plain, 5)
+        kernels.enable(False)
+        try:
+            with torch.no_grad():
+                unfused_ms = cuda_ms(unfused, 10)
+        finally:
+            kernels.enable(True)
+        flops = 22.0 * batch * t_c * c * c
+        t_bytes, t_ops = chain_bound(batch, t_c, c, dtype, [h, nc, ic, *weights])
+        shapes.append(dict(C=c, T=t_c, film=film, cond=cond, launches=n, ms=ms,
+                           plain_ms=plain_ms, unfused_ms=unfused_ms,
+                           bytes_ms=t_bytes, ops_ms=t_ops))
+        log(f"[{'rows' if rows else 'timing'}] C={c:3d} T={t_c:5d} film={film:d} "
+            f"cond={cond:d} B={batch} bf16 x{n}: kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+            f"unfused chain {unfused_ms:.4f} ms, bound "
+            f"{max(t_bytes, t_ops):.4f} ms "
+            f"({'bytes' if t_bytes >= t_ops else 'operations'})")
+        del h, weights, nc, ic, hr, icr, block
+    return shapes
+
+
+def phase_timing(model, shape_counts):
+    """End-to-end audio-s/s both ways, then each launched shape alone."""
     batch = TIMING_BATCH
     t = int(CLIP_S * FS)
-    g = torch.Generator(device="cuda").manual_seed(3)
-    mix = torch.randn(batch, t, generator=g, device="cuda") * 0.05
+    g = torch.Generator(device=DEVICE).manual_seed(3)
+    mix = torch.randn(batch, t, generator=g, device=DEVICE) * 0.05
     noise = noise_draws(model, batch, t, seed=4)
     audio_s = batch * CLIP_S
     rates = {}
@@ -249,36 +378,222 @@ def phase_timing(model, by_shape):
             f"{'kernel' if fused else 'unfused'}: median {s:.4f} s -> "
             f"{audio_s / s:.2f} audio-s/s")
 
-    dtype = torch.bfloat16
-    shapes = []
-    for (c, t_c, film, cond), n in sorted(by_shape.items()):
-        h, weights, nc, ic = chain_inputs(batch, t_c, c, dtype, film, cond)
-        block = fold_weight_norm(init_weights(ConvBlock(c, weight_norm=True))).to("cuda")
-        ms = cuda_ms(lambda: conv_block.fused_conv_chain(
-            h, *weights, noise_cond=nc, input_cond=ic), 10)
-        plain_ms = cuda_ms(lambda: conv_block.fused_conv_chain_reference(
-            h, *weights, noise_cond=nc, input_cond=ic), 5)
-        kernels.enable(False)
-        try:
-            with torch.no_grad():
-                unfused_ms = cuda_ms(lambda: block(h, noise_cond=nc, input_cond=ic), 10)
-        finally:
-            kernels.enable(True)
-        flops = 22.0 * batch * t_c * c * c
-        moved = sum(x.numel() * x.element_size() for x in [h, nc, ic, *weights]
-                    if x is not None) + 2 * h.numel() * h.element_size()
-        t_bytes = moved / PEAK_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-        shapes.append(dict(C=c, T=t_c, film=film, cond=cond, launches=n, ms=ms,
-                           plain_ms=plain_ms, unfused_ms=unfused_ms,
-                           bytes_ms=t_bytes, ops_ms=t_ops))
-        log(f"[timing] C={c:3d} T={t_c:5d} film={film:d} cond={cond:d} B={batch} "
-            f"bf16 x{n}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
-            f"plain {plain_ms:.4f} ms, unfused chain {unfused_ms:.4f} ms, bound "
-            f"{max(t_bytes, t_ops):.4f} ms "
-            f"({'bytes' if t_bytes >= t_ops else 'operations'})")
-        del h, weights, nc, ic, block
-    return rates, shapes, mix, noise
+    return rates, time_shapes(shape_counts, batch), mix, noise
+
+
+def phase_small_batch(model, rows_shapes):
+    """bf16 enhance at batch 1 and SERVE_BATCH, twice each; then the rows
+    entry alone at each of its shapes in phase 3 at SERVE_BATCH."""
+    t = int(CLIP_S * FS)
+    rates, inputs = {}, {}
+    for batch in (1, SERVE_BATCH, SERVE_BATCH, 1):
+        if batch not in inputs:
+            g = torch.Generator(device=DEVICE).manual_seed(5)
+            inputs[batch] = (torch.randn(batch, t, generator=g, device=DEVICE) * 0.05,
+                             noise_draws(model, batch, t, seed=6))
+        s = timed_enhance(model, *inputs[batch], True)
+        rates.setdefault(f"batch{batch}", []).append(dict(
+            audio_s_per_s=batch * CLIP_S / s, latency_ms=s * 1e3))
+        log(f"[small] enhance batch {batch} x {CLIP_S} s bf16: median "
+            f"{s * 1e3:.2f} ms -> {batch * CLIP_S / s:.2f} audio-s/s")
+
+    return rates, time_shapes(rows_shapes, SERVE_BATCH, rows=True), inputs[1]
+
+
+def default_model_config() -> dict:
+    """The model node of config/model/default.yaml with its
+    ${model.score_model.*} references written out."""
+    import yaml
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "config", "model", "default.yaml")
+    with open(path) as f:
+        node = yaml.safe_load(f)
+    ref = re.compile(r"^\$\{model\.score_model\.(\w+)\}$")
+    cond = node["condition_model"]
+    for k, v in cond.items():
+        m = ref.match(v) if isinstance(v, str) else None
+        if m:
+            cond[k] = node["score_model"][m.group(1)]
+    return node
+
+
+def write_checkpoint(directory: str) -> str:
+    """A reference-layout Lightning checkpoint of universepp(16000, seed=0):
+    weight norm unfolded, the score model under the EDM ``_edm_model.``
+    prefix, raw weights at half the EMA shadow, which holds the seeded
+    weights."""
+    import yaml
+
+    from open_universe_tpu_torch.inference.model_loader import ordered_param_names
+    from open_universe_tpu_torch.models.presets import universepp
+
+    shadow_sd = {re.sub(r"^score_model\.", "_edm_model.", k): v.detach().cpu().clone()
+                 for k, v in universepp(FS, device="cpu", seed=0).state_dict().items()}
+    names = ordered_param_names(
+        shadow_sd, ["_edm_model", "condition_model", "signal_decoupling_layer"])
+    raw_sd = {k: v * 0.5 if k in names else v for k, v in shadow_sd.items()}
+    path = os.path.join(directory, "weights.ckpt")
+    torch.save({"state_dict": raw_sd,
+                "ema": {"shadow_params": [shadow_sd[n] for n in names],
+                        "decay": 0.999, "num_updates": 1000}}, path)
+    with open(os.path.join(directory, "config.yaml"), "w") as f:
+        yaml.safe_dump({"model": default_model_config()}, f)
+    return path
+
+
+def wav_bytes(x: np.ndarray) -> bytes:
+    from open_universe_tpu_torch.data.audio import save_audio
+
+    with tempfile.NamedTemporaryFile(suffix=".wav") as f:
+        save_audio(f.name, x, FS)
+        return open(f.name, "rb").read()
+
+
+def wav_decode(body: bytes) -> np.ndarray:
+    """(channels, T) float32, as the server's load_audio reads it."""
+    with wave.open(io.BytesIO(body)) as w:
+        n, ch = w.getnframes(), w.getnchannels()
+        data = np.frombuffer(w.readframes(n), np.int16).reshape(n, ch).T
+    return data.astype(np.float32) / 32768.0
+
+
+def post(url: str, body: bytes):
+    req = urllib.request.Request(url + "/enhance", data=body)
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def get_json(url: str):
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return json.loads(r.read())
+
+
+def phase_serving():
+    """The serving path end to end on the card; returns its numbers and the
+    launches by entry counted over the served requests."""
+    from open_universe_tpu_torch.bin.serve import make_server
+    from open_universe_tpu_torch.inference.model_loader import load_model
+    from open_universe_tpu_torch.models.presets import universepp
+    from open_universe_tpu_torch.ops.kernels import conv_block
+    from open_universe_tpu_torch.utils.convert import fold_weight_norm
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        model = load_model(write_checkpoint(tmp), device=DEVICE)
+        log(f"[serve] checkpoint written and loaded in {time.perf_counter() - t0:.1f} s")
+    want = fold_weight_norm(universepp(FS, device=DEVICE, seed=0)).state_dict()
+    got = model.state_dict()
+    ema_err = max((got[k].float() - v.float()).abs().max().item() for k, v in want.items())
+    log(f"[serve] loaded weights vs the EMA shadow, folded: max|d| = {ema_err:.3e}")
+    if set(got) != set(want) or not ema_err <= 1e-5:
+        raise AssertionError("load_model did not apply the EMA shadow")
+    del want
+
+    server, service = make_server(model, model_name="universepp-16k-seeded",
+                                  port=0, max_batch=SERVE_BATCH, batch_window_ms=50.0,
+                                  bucket_seconds=BUCKET_S)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        t0 = time.perf_counter()
+        n_warm = service.precompile(CLIP_S)
+        warm_s = time.perf_counter() - t0
+        log(f"[serve] warm-up: {n_warm} (bucket, rows) shapes in {warm_s:.1f} s")
+        rng = np.random.default_rng(7)
+
+        def clip(seconds, channels=1):
+            x = 0.05 * rng.standard_normal((channels, int(seconds * FS)))
+            x += 0.1 * np.sin(2 * np.pi * 220 * np.arange(x.shape[1]) / FS)
+            return (x[0] if channels == 1 else x).astype(np.float32)
+
+        conv_block.launches.clear()
+        state = service.generator.get_state()
+        first = wav_bytes(clip(CLIP_S))
+        status, body = post(url, first)
+        if status != 200:
+            raise AssertionError(f"first request answered {status}: {body[:200]}")
+        first_out = wav_decode(body)
+
+        t = int(CLIP_S * FS)
+        bodies = ([wav_bytes(clip(CLIP_S)) for _ in range(8)]
+                  + [wav_bytes(clip(CLIP_S / 2)) for _ in range(3)]
+                  + [wav_bytes(clip(CLIP_S, channels=2))])
+        shapes = [(1, t)] * 8 + [(1, t // 2)] * 3 + [(2, t)]
+        results = [None] * len(bodies)
+        go = threading.Barrier(len(bodies))
+
+        def send(i):
+            go.wait()
+            results[i] = post(url, bodies[i])
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=send, args=(i,)) for i in range(len(bodies))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        burst_s = time.perf_counter() - t0
+        for (status, body), shape in zip(results, shapes):
+            if status != 200:
+                raise AssertionError(f"concurrent request answered {status}: {body[:200]}")
+            out = wav_decode(body)
+            if out.shape != shape or not np.isfinite(out).all():
+                raise AssertionError(f"response shape {out.shape}, expected {shape}")
+        stats = get_json(url + "/stats")
+        log(f"[serve] 12 concurrent requests (13 clips) in {burst_s:.3f} s; stats {stats}")
+        if stats["clips"] != 14 or stats["errors"]:
+            raise AssertionError(f"/stats counts {stats['clips']} clips, expected 14")
+
+        latencies = []
+        for _ in range(5):
+            body = wav_bytes(clip(CLIP_S))
+            t0 = time.perf_counter()
+            status, _ = post(url, body)
+            latencies.append(time.perf_counter() - t0)
+            if status != 200:
+                raise AssertionError(f"timed request answered {status}")
+        stats = get_json(url + "/stats")
+        torch.cuda.synchronize()
+        entries = by_entry(conv_block.launches)
+        latencies.sort()
+        log(f"[serve] 5 lone 2 s requests: median latency "
+            f"{latencies[2] * 1e3:.1f} ms (all {[round(x * 1e3, 1) for x in latencies]}); "
+            f"device_realtime_factor {stats['device_realtime_factor']:.2f}; "
+            f"launches by entry while serving {entries}")
+        if not entries.get("fused_conv_chain_rows"):
+            raise AssertionError("the rows entry did not launch while serving")
+
+        # the first response against enhance of its bucket-padded batch with
+        # the generator state the service started from
+        from open_universe_tpu_torch.data.audio import load_audio
+
+        with tempfile.NamedTemporaryFile(suffix=".wav") as f:
+            f.write(first)
+            f.flush()
+            sent, _ = load_audio(f.name)
+        g = torch.Generator(device=DEVICE)
+        g.set_state(state)
+        direct = model.enhance(torch.from_numpy(sent).to(DEVICE), generator=g)
+        direct = direct.float().cpu().numpy()
+        diff = float(np.abs(first_out - direct).max())
+        log(f"[serve] first response vs direct enhance: max|d| = {diff:.3e} "
+            f"(bound 1e-4 + 1/32767)")
+        if not diff <= 1e-4 + 1.0 / 32767:
+            raise AssertionError(f"served result differs from enhance by {diff}")
+    finally:
+        server.shutdown()
+        service.close()
+    return dict(warmup_shapes=n_warm, warmup_s=warm_s, burst_s=burst_s,
+                median_latency_ms=latencies[2] * 1e3,
+                latencies_ms=[x * 1e3 for x in latencies],
+                device_realtime_factor=stats["device_realtime_factor"],
+                mean_batch=stats["mean_batch"], first_vs_direct=diff,
+                ema_err=ema_err), entries
 
 
 def kernel_group(name: str) -> str:
@@ -302,15 +617,15 @@ def busy_ms(intervals) -> float:
     return total / 1e3
 
 
-def phase_profile(model, mix, noise):
-    """One traced enhance each way: device time by kernel group and op."""
+def phase_profile(model, mix, noise, runs=(("kernel", True), ("unfused", False))):
+    """One traced enhance per (name, kernels on) run: device time by kernel
+    group and op, device busy time and idle share."""
     from torch.profiler import ProfilerActivity, profile
 
     from open_universe_tpu_torch.ops import kernels
 
     result = {}
-    for fused in (True, False):
-        name = "kernel" if fused else "unfused"
+    for name, fused in runs:
         kernels.enable(fused)
         try:
             with profile(activities=[ProfilerActivity.CPU,
@@ -358,34 +673,67 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_build()
     worst = phase_kernel_vs_plain()
-    model, launches, by_shape = phase_main_path()
-    rates, shapes, mix, noise = phase_timing(model, by_shape)
+    worst_rows = phase_kernel_vs_plain(rows=True)
+    model, counts = phase_main_path()
+    entries = by_entry(counts)
+    # at batch 128 every block takes the unpacked entry, at these shapes
+    rates, shapes, mix, noise = phase_timing(model, by_shape(counts))
+    small_rates, rows_shapes, (mix1, noise1) = phase_small_batch(
+        model, by_shape(counts, "fused_conv_chain_rows"))
     profiled = phase_profile(model, mix, noise)
+    profiled_1 = phase_profile(model, mix1, noise1, runs=(("batch 1", True),))
+    del model, mix, noise
+    served, serve_entries = phase_serving()
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
-    def total(key):
+    def total(key, shapes=shapes):
         return sum(s[key] * s["launches"] for s in shapes)
+
+    def bound(shapes):
+        return dict(
+            bound_ms=sum(max(s["bytes_ms"], s["ops_ms"]) * s["launches"] for s in shapes),
+            bound_by=("bytes" if total("bytes_ms", shapes) >= total("ops_ms", shapes)
+                      else "operations"))
 
     kernel_line = {"kernels": [{
         "name": "fused_conv_chain",
         "route": "cuda",
         "source": "open_universe_tpu_torch/csrc/conv_block.cu",
         "replaces": "open_universe_tpu/ops/pallas/conv_block.py:180",
-        "launches": launches,
+        # launches in phase 3 (batch 2: the blocks of C >= 128)
+        "launches": entries["fused_conv_chain"],
         "max_abs_err": worst,
-        # per enhance of batch 128 x 2 s in bf16: each (C, T, FiLM, cond)
-        # timed alone, times its launches in phase 3
+        # per enhance of batch 128 x 2 s in bf16 (all 94 blocks): each
+        # (C, T, FiLM, cond) timed alone, times its launches in phase 3
         "ms": total("ms"),
         "plain_ms": total("plain_ms"),
-        "bound_ms": sum(max(s["bytes_ms"], s["ops_ms"]) * s["launches"]
-                        for s in shapes),
-        "bound_by": ("bytes" if total("bytes_ms") >= total("ops_ms")
-                     else "operations"),
+        **bound(shapes),
         "library_ms": None,
         "unfused_ms": total("unfused_ms"),
         "audio_s_per_s": {"kernel": rates[True], "unfused": rates[False]},
         "per_shape": shapes,
         "profile": profiled,
+    }, {
+        "name": "fused_conv_chain_rows",
+        "route": "cuda",
+        "source": "open_universe_tpu_torch/csrc/conv_block.cu",
+        "replaces": "open_universe_tpu/ops/pallas/conv_block.py:216",
+        # launches while serving (phase 6)
+        "launches": serve_entries.get("fused_conv_chain_rows", 0),
+        "max_abs_err": worst_rows,
+        # per enhance of batch 16 x 2 s in bf16 (the blocks of C < 128):
+        # each (C, T, FiLM, cond) timed alone, times its launches in phase 3
+        "ms": total("ms", rows_shapes),
+        "plain_ms": total("plain_ms", rows_shapes),
+        **bound(rows_shapes),
+        "library_ms": None,
+        "unfused_ms": total("unfused_ms", rows_shapes),
+        "launches_per_enhance": entries,
+        "serving_launches": serve_entries,
+        "enhance_small_batch": small_rates,
+        "profile_batch1": profiled_1,
+        "serving": served,
+        "per_shape": rows_shapes,
     }]}
     print(card_line(), flush=True)
     print(json.dumps(kernel_line), flush=True)

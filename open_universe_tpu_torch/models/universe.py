@@ -29,6 +29,14 @@ def _cfg(d: Optional[Dict[str, Any]], **defaults) -> Dict[str, Any]:
     return out
 
 
+class IdentityTransform(nn.Module):
+    """The identity waveform transform (reference layers/dyn_range_comp.py),
+    the only one ported."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+
 class Universe(nn.Module):
     """UNIVERSE score-based speech enhancement model."""
 
@@ -37,8 +45,13 @@ class Universe(nn.Module):
                  condition_model: Optional[ConditionerNetwork] = None,
                  diffusion: Optional[dict] = None,
                  normalization_kwargs: Optional[dict] = None,
-                 edm: Optional[dict] = None):
+                 edm: Optional[dict] = None,
+                 transform: Optional[nn.Module] = None):
         super().__init__()
+        if transform is not None and not isinstance(transform, IdentityTransform):
+            raise NotImplementedError(
+                f"{type(transform).__name__} is not ported; only the identity "
+                "transform is")
         self.fs = fs
         self.normalization_norm = normalization_norm
         self.normalization_kwargs = _cfg(normalization_kwargs)
@@ -51,6 +64,11 @@ class Universe(nn.Module):
         self.edm_kwargs = _cfg(edm) if edm else {}
         self.n_channels = self.score_model.n_channels
         self.tot_ds = math.prod(self.score_model.rate_factors)
+
+    def model_param_keys(self):
+        """Sub-modules whose parameters a checkpoint's EMA shadow covers, in
+        the order it lists them."""
+        return ("score_model", "condition_model")
 
     # ------------------------------------------------------------- primitives
     def normalize_batch(self, batch, norm=None):

@@ -5,6 +5,12 @@ App. D) with FiLM noise conditioning and residual/condition outputs, and the
 binomial anti-aliasing filter (JAX package ``nn/blocks.py``).  An eligible
 ConvBlock runs its conv chain as one fused kernel
 (``ops/kernels/conv_block.py``).
+
+The JAX package runs batches of up to 64 rows lane-packed, where a block of
+C < 128 channels takes the kernel's rows entry on (B, T/P, P*C),
+P = 128 // C.  Those rows hold the same bytes as (B, T, C), so ``forward``
+keeps that rule by calling the rows entry on a view: the same kernel on the
+same data, with the same result.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ from ..ops.kernels import conv_block
 from .layers import Conv1d, ConvTranspose1d, PReLU
 
 SQRT_HALF = 1.0 / math.sqrt(2.0)
+ROWS_MAX_BATCH = 64  # the JAX package's packed-mode batch limit
 
 
 def film(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -243,10 +250,19 @@ class ConvBlock(nn.Module):
 
         if self._fused_eligible():
             h = h.contiguous()
-            v_out, cond_out = conv_block.fused_conv_chain(
-                h, *self._chain_args(h.dtype),
-                noise_cond=None if noise_cond is None else noise_cond.contiguous(),
-                input_cond=None if input_cond is None else input_cond.contiguous())
+            nc = None if noise_cond is None else noise_cond.contiguous()
+            ic = None if input_cond is None else input_cond.contiguous()
+            b, t, c = h.shape
+            p = max(1, 128 // c)
+            if p > 1 and b <= ROWS_MAX_BATCH and t % p == 0:
+                rows = (b, t // p, p * c)
+                v_out, cond_out = conv_block.fused_conv_chain_rows(
+                    h.view(rows), p, c, *self._chain_args(h.dtype), noise_cond=nc,
+                    input_cond_rows=None if ic is None else ic.view(rows))
+                v_out, cond_out = v_out.view(b, t, c), cond_out.view(b, t, c)
+            else:
+                v_out, cond_out = conv_block.fused_conv_chain(
+                    h, *self._chain_args(h.dtype), noise_cond=nc, input_cond=ic)
         else:
             cond_out = self.conv1(h)
             if input_cond is not None:

@@ -11,6 +11,15 @@ runs in one launch of ``csrc/conv_block.cu`` on a CUDA tensor, and as
 the JAX layout (K, Cin, Cout) and h's dtype, the three PReLU slopes in
 float32 (as the JAX kernel takes them), h in (B, T, C), and return
 (v, cond_out).
+
+``fused_conv_chain_rows`` is the same chain on the JAX package's lane-packed
+rows (B, T/P, P*C), P = max(1, 128 // C).  Row r, lane p*C + c holds sample
+r*P + p, channel c: the same contiguous bytes as (B, T, C), so it launches
+the same kernel on a view.  The TPU kernel's block-Toeplitz weight packing
+only fills the TPU's 128 lanes and has no counterpart here.
+
+``launches`` counts each launch by (entry, C, T, with FiLM, with cond);
+``launches.clear()`` sets every count to 0.  The plain version is no launch.
 """
 from __future__ import annotations
 
@@ -28,10 +37,7 @@ SQRT_HALF = 1.0 / math.sqrt(2.0)
 WIDTHS = (32, 64, 128, 256, 512)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# kernel launches (the plain version is none), in all and by
-# (C, T, with FiLM, with cond)
-launches = 0
-launches_by_shape: collections.Counter = collections.Counter()
+launches: collections.Counter = collections.Counter()
 
 
 def _lib() -> ctypes.CDLL:
@@ -101,8 +107,14 @@ def fused_conv_chain(
     if h.device.type == "cpu":
         return fused_conv_chain_reference(h, *weights, noise_cond=noise_cond,
                                           input_cond=input_cond)
+    return _launch("fused_conv_chain", h, weights, noise_cond, input_cond)
+
+
+def _launch(entry, h, weights, noise_cond, input_cond):
+    """Check the operands of a CUDA call, launch the kernel on h (B, T, C)
+    and count the launch under ``entry``."""
     if h.device.type != "cuda":
-        raise ValueError(f"fused_conv_chain runs on cpu or cuda, not {h.device}")
+        raise ValueError(f"{entry} runs on cpu or cuda, not {h.device}")
     _check(h, weights, noise_cond, input_cond)
     b, t, c = h.shape
     v = torch.empty_like(h)
@@ -117,10 +129,76 @@ def fused_conv_chain(
             v.data_ptr(), cond_out.data_ptr(), b, t, c, stream)
     if err != 0:
         raise RuntimeError(f"conv_block kernel launch failed: cudaError_t {err}")
-    global launches
-    launches += 1
-    launches_by_shape[(c, t, noise_cond is not None, input_cond is not None)] += 1
+    launches[(entry, c, t, noise_cond is not None, input_cond is not None)] += 1
     return v, cond_out
+
+
+def _rows_view(h_rows, p, c, input_cond_rows):
+    """The (B, T, C) views of lane-packed rows (B, T/P, P*C)."""
+    if h_rows.dim() != 3:
+        raise ValueError(f"h_rows must be (B, T/P, P*C), got {tuple(h_rows.shape)}")
+    b, rows, lanes = h_rows.shape
+    if p != max(1, 128 // c):
+        raise ValueError(f"pack factor {p} for C={c}; the packed layout has "
+                         f"P = max(1, 128 // C) = {max(1, 128 // c)}")
+    if lanes != p * c:
+        raise ValueError(f"h_rows has {lanes} lanes, not P*C = {p * c}")
+    for name, x in (("h_rows", h_rows), ("input_cond_rows", input_cond_rows)):
+        if x is None:
+            continue
+        if tuple(x.shape) != (b, rows, lanes):
+            raise ValueError(f"{name}: expected shape {(b, rows, lanes)}, "
+                             f"got {tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    ic = None if input_cond_rows is None else input_cond_rows.view(b, rows * p, c)
+    return h_rows.view(b, rows * p, c), ic
+
+
+def fused_conv_chain_rows(
+    h_rows: torch.Tensor, p: int, c: int,
+    w5: torch.Tensor, b5: torch.Tensor, a1: torch.Tensor,
+    w3a: torch.Tensor, b3a: torch.Tensor, a2: torch.Tensor,
+    w3b: torch.Tensor, b3b: torch.Tensor, a3: torch.Tensor,
+    noise_cond: Optional[torch.Tensor] = None,
+    input_cond_rows: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``fused_conv_chain`` on lane-packed rows: h_rows and input_cond_rows
+    (B, T/P, P*C) with P = max(1, 128 // C), contiguous; the weights, slopes
+    and noise_cond (B, 2C) as ``fused_conv_chain`` takes them.  Returns
+    (v_rows, cond_out_rows), packed the same way.
+
+    Unlike the JAX entry, which returns None when the rows do not tile its
+    TPU grid, this one always computes: the kernel takes any T >= 1.  A CPU
+    tensor runs ``fused_conv_chain_rows_reference``; a CUDA tensor launches
+    the kernel or raises.
+    """
+    weights = (w5, b5, a1, w3a, b3a, a2, w3b, b3b, a3)
+    h, ic = _rows_view(h_rows, p, c, input_cond_rows)
+    if h.device.type == "cpu":
+        return fused_conv_chain_rows_reference(
+            h_rows, p, c, *weights, noise_cond=noise_cond,
+            input_cond_rows=input_cond_rows)
+    v, cond_out = _launch("fused_conv_chain_rows", h, weights, noise_cond, ic)
+    return v.view(h_rows.shape), cond_out.view(h_rows.shape)
+
+
+def fused_conv_chain_rows_reference(
+    h_rows: torch.Tensor, p: int, c: int,
+    w5: torch.Tensor, b5: torch.Tensor, a1: torch.Tensor,
+    w3a: torch.Tensor, b3a: torch.Tensor, a2: torch.Tensor,
+    w3b: torch.Tensor, b3b: torch.Tensor, a3: torch.Tensor,
+    noise_cond: Optional[torch.Tensor] = None,
+    input_cond_rows: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``fused_conv_chain_rows``: unpack the rows to
+    (B, T, C), run ``fused_conv_chain_reference``, pack again."""
+    b, rows, lanes = h_rows.shape
+    ic = None if input_cond_rows is None else input_cond_rows.reshape(b, rows * p, c)
+    v, cond_out = fused_conv_chain_reference(
+        h_rows.reshape(b, rows * p, c), w5, b5, a1, w3a, b3a, a2, w3b, b3b, a3,
+        noise_cond=noise_cond, input_cond=ic)
+    return v.reshape(b, rows, lanes), cond_out.reshape(b, rows, lanes)
 
 
 def fused_conv_chain_reference(

@@ -166,7 +166,7 @@ def test_plain_version_matches_unfused_chain_where_pallas_refuses(rng, record_pr
 def test_wrapper_takes_plain_version_only_on_cpu(rng):
     weights = _weights(rng, 16)
     h, nc, ic = _inputs(rng, 1, 40, 16, True, False)
-    launches = conv_block.launches
+    launches = dict(conv_block.launches)
     out = conv_block.fused_conv_chain(_t(h), *map(_t, weights), noise_cond=_t(nc))
     _close(out, _plain(h, weights, nc, None))
     assert conv_block.launches == launches  # the plain version is no launch

@@ -115,11 +115,18 @@ def test_enhance_matches_jax(monkeypatch, record_property, edm, fold):
 
 
 def test_main_path_imports_no_jax():
-    """The port's main path, run end to end on the CPU, loads neither jax nor
-    any module of the JAX package."""
+    """The port's main path and its serving path, run end to end on the CPU
+    (enhance; a checkpoint loaded by ``load_model`` and served over HTTP),
+    load neither jax nor any module of the JAX package."""
     code = textwrap.dedent(f"""
-        import sys
+        import io, sys, tempfile, threading, urllib.request
+        from pathlib import Path
+        import numpy as np
         import torch
+        import yaml
+        from scipy.io import wavfile
+        from open_universe_tpu_torch.bin.serve import make_server
+        from open_universe_tpu_torch.inference.model_loader import load_model
         from open_universe_tpu_torch.models.condition import ConditionerNetwork
         from open_universe_tpu_torch.models.presets import universepp
         from open_universe_tpu_torch.models.score import ScoreNetwork
@@ -130,11 +137,34 @@ def test_main_path_imports_no_jax():
         model = UniverseGAN(score_model=ScoreNetwork(**{_SCORE!r}),
                             condition_model=ConditionerNetwork(**{_COND!r}),
                             edm={{"noise": 0.25}})
-        fold_weight_norm(init_weights(model, seed=0))
+        init_weights(model, seed=0)
+        tmp = Path(tempfile.mkdtemp())
+        torch.save({{"state_dict": model.state_dict()}}, tmp / "weights.ckpt")
+        target = "open_universe.networks.universe."
+        cfg = {{"_target_": target + "UniverseGAN", "edm": {{"noise": 0.25}},
+                "score_model": {{"_target_": target + "ScoreNetwork", **{_SCORE!r}}},
+                "condition_model": {{"_target_": target + "ConditionerNetwork",
+                                     **{_COND!r}}}}}
+        (tmp / "config.yaml").write_text(yaml.safe_dump({{"model": cfg}}))
+
+        fold_weight_norm(model)
         mix = torch.randn(2, 640, generator=torch.Generator().manual_seed(0))
         out = model.enhance(mix * 0.1, n_steps=3,
                             generator=torch.Generator().manual_seed(1))
         assert out.shape == (2, 640) and bool(torch.isfinite(out).all())
+
+        served = load_model(tmp / "weights.ckpt", load_ema=False, device="cpu")
+        srv, service = make_server(served, port=0, batch_window_ms=1.0,
+                                   enhance_kwargs={{"n_steps": 2}})
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        buf = io.BytesIO()
+        wavfile.write(buf, 16000, (np.sin(np.arange(800) / 5) * 3000).astype(np.int16))
+        url = f"http://127.0.0.1:{{srv.server_address[1]}}/enhance"
+        with urllib.request.urlopen(urllib.request.Request(url, data=buf.getvalue()),
+                                    timeout=60) as r:
+            assert r.status == 200 and len(r.read()) == 44 + 2 * 800
+        srv.shutdown()
+        service.close()
         if not torch.cuda.is_available():
             try:  # entry points run on CUDA unless asked for the CPU
                 universepp()

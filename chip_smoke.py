@@ -4,26 +4,43 @@
 
 Phases, each of which raises (exit code != 0) on failure:
 
-1. Build the CUDA kernels from ``open_universe_tpu_torch/csrc`` and print
-   the card's name and power limit.  TF32 is off for convs and matmuls.
+1. Build the CUDA kernels from ``open_universe_tpu_torch/csrc`` (one nvcc per
+   source, all at once), log each kernel instantiation's registers, shared
+   memory and spills as ptxas reports them, and print the card's name and
+   power limit.  TF32 is off for convs and matmuls.
 2. Hold the fused ConvBlock kernel against its plain PyTorch version on the
-   card, at every width of the UNIVERSE++ 16 kHz path (C = 32..512) and the
-   lengths that path gives it, FiLM and cond on and off, float32 and bf16.
+   card at all ten widths of the UNIVERSE++ 16 and 24 kHz presets
+   (C = 32..768) on both routes (bf16: tensor cores, ``conv_block_tc.cu``;
+   f32: CUDA cores, ``conv_block.cu``): at the length the main path gives
+   the width, T = 1, T = 5 (below a tile) and T = 1004 (a partial last tile
+   on every route), FiLM and cond on and off.  One line per (C, dtype).
 2b. The same for the kernel's rows entry (``fused_conv_chain_rows``) on
-   lane-packed rows (B, T/P, P*C), P = max(1, 128 // C), at the main path's
-   row counts and at T = 5P.
+   lane-packed rows (B, T/P, P*C), P = max(1, 128 // C), at T = P, 5P, 1004
+   and the main path's length.
 3. Run the main path at full width: ``universepp(16000)`` with seeded random
    weights, weight norm folded, ``enhance`` on 2 x 2 s at 16 kHz, 8 steps,
    float32, once through the kernel and once through the unfused chain, on
    the same noise.  Both must agree, and the kernel run must launch the
-   kernel 94 times: at this batch (<= 64) through the rows entry at
-   C < 128 and through the unpacked entry at C >= 128.  The launches are
-   counted by (entry, C, T, FiLM, cond).
+   f32 route 94 times: at this batch (<= 64) through the rows entry at
+   C < 128 and through the unpacked entry at C >= 128.  Then the same
+   ``enhance`` with bf16 networks must launch the bf16 route 94 times with
+   the same split.  The launches are counted by (entry, route, C, T, FiLM,
+   cond).
+3c. The 24 kHz model: a reference-layout checkpoint of the seeded
+   ``universepp(24000)`` with ``config/model/universepp_24k.yaml``'s model
+   node beside it, loaded by ``load_model`` through the port's registry
+   (EMA applied, folded); ``enhance`` of 2 x 2 s at 24 kHz, 8 steps, f32,
+   through the kernel and the unfused chain on the same noise: they agree
+   within 1e-4, with 94 launches at C = 48..768 (C = 48 on the rows
+   entry); one 2 s request served over HTTP (94 launches).  Then the
+   kernel, its plain version and the unfused chain alone in bf16 and f32
+   at each of its shapes at batch 128.
 4. Time ``enhance`` in bench.py's setting (bf16 networks, batch 128 x 2 s,
    8 steps, every block through the unpacked entry) with the kernel and with
-   the unfused chain; then time the kernel, its plain version and the
-   unfused chain alone at each (C, T, FiLM, cond) that phase 3 launched,
-   and weight each by its launches.
+   the unfused chain; then time the kernel (and its f32 route), its plain
+   version and the unfused chain alone at each (C, T, FiLM, cond) that
+   phase 3 launched, weight each by its launches, and give each shape's
+   TFLOP/s and bound share.
 4b. Time bf16 ``enhance`` on 2 s clips at batch 1 and 16; then the rows
    entry, its plain version and the unfused chain alone at each rows shape
    of phase 3 at batch 16, weighted by launches.
@@ -40,7 +57,8 @@ Phases, each of which raises (exit code != 0) on failure:
    shape; ``/stats`` counts every clip; the rows entry launched.  Then 5
    lone 2 s requests give the serving latency.
 
-The last two lines are a JSON object with one entry per kernel and
+The last two lines are a JSON object with one entry per kernel (per-enhance
+sums; each shape's numbers are on the log lines of phases 3c, 4 and 4b) and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
 and prints no result.
 """
@@ -69,7 +87,13 @@ BUCKET_S = 1.0  # the server's length buckets
 N_STEPS = 8
 TIMING_BATCH = 128
 SERVE_BATCH = 16
+SOURCES = ("conv_block", "conv_block_tc")
+# ConvBlock width -> length on a 2 s clip: 16 kHz (universepp(16000)) and
+# 24 kHz (config/model/universepp_24k.yaml)
 WIDTH_LENGTHS = {32: 32160, 64: 16080, 128: 4020, 256: 1005, 512: 201}
+WIDTH_LENGTHS_24K = {48: 48240, 96: 24120, 192: 8040, 384: 1608, 768: 201}
+PARTIAL_T = 1004  # leaves a partial last time tile on every route and width
+F32, BF16 = "f32_cuda_cores", "bf16_tensor_cores"  # conv_block.ROUTES' names
 # ConvBlocks per enhance with 8 steps: 10 per score pass, 14 in the conditioner
 PATH_LAUNCHES = 10 * N_STEPS + 14
 PEAK_BYTES_PER_S = 3.35e12
@@ -79,7 +103,7 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # first matching substring of a device kernel's lower-cased name names its
 # group; casts and contiguous copies are copy kernels, pads a fill and a copy
 GROUPS = (
-    ("fused ConvBlock kernel", ("conv_block_kernel",)),
+    ("fused ConvBlock kernel", ("conv_block_kernel", "conv_block_tc_kernel")),
     ("GRU", ("rnn", "gru")),
     ("FFT", ("fft",)),
     ("cuDNN / library conv", ("conv", "fprop", "implicit", "winograd", "cudnn")),
@@ -137,33 +161,72 @@ def chain_inputs(b, t, c, dtype, film, cond, seed=0):
     return h, weights, nc, ic
 
 
+def ptxas_summary(text: str) -> list:
+    """One line per compiled kernel from ``nvcc -Xptxas=-v``: its name and
+    width, registers, shared memory and spills."""
+    out, name, spill = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            raw = m.group(1)
+            kernel = re.search(r"\d+(conv_block\w*?_kernel)I", raw)
+            width = re.search(r"Li(\d+)E", raw)
+            name = (f"{kernel.group(1)}<C={width.group(1)}>" if kernel and width
+                    else raw)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spill = f"spill stores {m.group(1)} B, spill loads {m.group(2)} B"
+            continue
+        m = re.search(r"Used (\d+) registers(.*)", line)
+        if m and name:
+            out.append(dict(kernel=name, registers=int(m.group(1)),
+                            text=f"{name}: {m.group(1)} registers{m.group(2)}; {spill}",
+                            spills=bool(re.search(r"spill (stores|loads) [1-9]", spill))))
+            name, spill = None, ""
+    return out
+
+
 def phase_build():
+    """Returns the build's seconds and ptxas's summary by source."""
     from open_universe_tpu_torch.ops.kernels import build
 
     t0 = time.perf_counter()
-    build.build("conv_block")
-    log(f"[build] conv_block built in {time.perf_counter() - t0:.1f} s")
-    for line in build.build_log("conv_block").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    build.build(*SOURCES)
+    build_s = time.perf_counter() - t0
+    log(f"[build] {', '.join(SOURCES)} built in {build_s:.1f} s (one nvcc each, at once)")
+    summary = {}
+    for source in SOURCES:
+        summary[source] = ptxas_summary(build.build_log(source))
+        for k in summary[source]:
+            log(f"[build] {k['text']}")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     log(f"[device] {card_line()} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
+    return build_s, summary
 
 
 def by_entry(counts) -> dict:
-    """Launches by entry name, from counts keyed by (entry, C, T, FiLM, cond)."""
+    """Launches by entry name, from counts keyed by (entry, route, C, T,
+    FiLM, cond)."""
     out = {}
     for (entry, *_), n in counts.items():
         out[entry] = out.get(entry, 0) + n
     return out
 
 
+def by_route(counts) -> dict:
+    out = {}
+    for (_, route, *_), n in counts.items():
+        out[route] = out.get(route, 0) + n
+    return out
+
+
 def by_shape(counts, entry=None) -> dict:
     """Launches by (C, T, FiLM, cond), of one entry or of all."""
     out = {}
-    for (e, *shape), n in counts.items():
+    for (e, _, *shape), n in counts.items():
         if entry in (None, e):
             out[tuple(shape)] = out.get(tuple(shape), 0) + n
     return out
@@ -174,49 +237,58 @@ def pack(x, c):
     return None if x is None else x.reshape(x.shape[0], -1, c * max(1, 128 // c))
 
 
+def check_lengths(c: int, rows: bool) -> list:
+    """(T, FiLM, cond) cases of one width: the main path's length both ways,
+    one row (T = P), a length below every tile and one that leaves a partial
+    last tile."""
+    p = max(1, 128 // c) if rows else 1
+    t_main = {**WIDTH_LENGTHS, **WIDTH_LENGTHS_24K}[c]
+    return [(t_main, True, True), (t_main, False, False), (p, True, True),
+            (5 * p, True, False), (PARTIAL_T, False, True)]
+
+
 def phase_kernel_vs_plain(rows: bool = False):
-    """Returns the largest max|kernel - plain| over the cases, for the
-    unpacked entry or (rows=True) the rows entry at T = rows * P."""
+    """Both routes at every width against the plain version; returns the
+    largest max|kernel - plain| by route, for the unpacked entry or
+    (rows=True) the rows entry."""
     from open_universe_tpu_torch.ops.kernels import conv_block
 
     tag = "rows" if rows else "kernel"
-    worst = 0.0
-    for c, t_main in WIDTH_LENGTHS.items():
+    worst = {}
+    for c in conv_block.WIDTHS:
         p = max(1, 128 // c)
-        t_short = 5 * p if rows else 5  # shorter than a tile
-        cases = [(t_main, True, True, torch.float32),
-                 (t_main, False, False, torch.float32),
-                 (t_main, True, False, torch.bfloat16),
-                 (t_main, True, True, torch.bfloat16),
-                 (t_short, True, True, torch.float32),
-                 (t_short, False, True, torch.bfloat16)]
-        for t, film, cond, dtype in cases:
-            h, weights, nc, ic = chain_inputs(2, t, c, dtype, film, cond, seed=c + t)
-            if rows:
-                got = conv_block.fused_conv_chain_rows(
-                    pack(h, c), p, c, *weights, noise_cond=nc, input_cond_rows=pack(ic, c))
-                torch.cuda.synchronize()
-                ref = conv_block.fused_conv_chain_rows_reference(
-                    pack(h, c), p, c, *weights, noise_cond=nc, input_cond_rows=pack(ic, c))
-            else:
-                got = conv_block.fused_conv_chain(h, *weights, noise_cond=nc,
-                                                  input_cond=ic)
-                torch.cuda.synchronize()
-                ref = conv_block.fused_conv_chain_reference(h, *weights, noise_cond=nc,
-                                                            input_cond=ic)
-            for name, a, r in zip(("v", "cond_out"), got, ref):
-                if a.shape != r.shape:
-                    raise AssertionError(f"{tag}: shape {tuple(a.shape)} != {tuple(r.shape)}")
-                err = (a.float() - r.float()).abs().max().item()
-                scale = r.float().abs().max().item()
-                ok = math.isfinite(err) and err <= TOL[dtype] * scale
-                log(f"[{tag}] C={c:3d} T={t:5d} film={film:d} cond={cond:d} "
-                    f"{str(dtype)[6:]:8s} {name:8s} max|d|={err:.3e} "
-                    f"max|ref|={scale:.3e} {'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise AssertionError(f"{tag} kernel disagrees with its plain "
-                                         f"version at C={c} T={t} {dtype} ({name})")
-                worst = max(worst, err)
+        for dtype in (torch.float32, torch.bfloat16):
+            route = conv_block.ROUTES[dtype][0]
+            err_c, rel_c = 0.0, 0.0
+            cases = check_lengths(c, rows)
+            for t, film, cond in cases:
+                h, weights, nc, ic = chain_inputs(2, t, c, dtype, film, cond, seed=c + t)
+                if rows:
+                    got = conv_block.fused_conv_chain_rows(
+                        pack(h, c), p, c, *weights, noise_cond=nc, input_cond_rows=pack(ic, c))
+                    torch.cuda.synchronize()
+                    ref = conv_block.fused_conv_chain_rows_reference(
+                        pack(h, c), p, c, *weights, noise_cond=nc, input_cond_rows=pack(ic, c))
+                else:
+                    got = conv_block.fused_conv_chain(h, *weights, noise_cond=nc,
+                                                      input_cond=ic)
+                    torch.cuda.synchronize()
+                    ref = conv_block.fused_conv_chain_reference(h, *weights, noise_cond=nc,
+                                                                input_cond=ic)
+                for name, a, r in zip(("v", "cond_out"), got, ref):
+                    if a.shape != r.shape:
+                        raise AssertionError(f"{tag}: shape {tuple(a.shape)} != {tuple(r.shape)}")
+                    err = (a.float() - r.float()).abs().max().item()
+                    scale = r.float().abs().max().item()
+                    if not (math.isfinite(err) and err <= TOL[dtype] * scale):
+                        log(f"[{tag}] C={c} T={t} film={film:d} cond={cond:d} {route} "
+                            f"{name}: max|d|={err:.3e} max|ref|={scale:.3e} FAIL")
+                        raise AssertionError(f"{tag} kernel disagrees with its plain "
+                                             f"version at C={c} T={t} {dtype} ({name})")
+                    err_c, rel_c = max(err_c, err), max(rel_c, err / scale)
+            log(f"[{tag}] C={c:3d} {route:17s} T={[t for t, *_ in cases]}: worst "
+                f"max|d| {err_c:.3e} = {rel_c:.2e} max|ref| (bound {TOL[dtype]:g}) ok")
+            worst[route] = max(worst.get(route, 0.0), err_c)
     return worst
 
 
@@ -227,12 +299,54 @@ def noise_draws(model, b, t, seed):
     return [torch.randn(shape, generator=g, device=DEVICE) for _ in range(N_STEPS)]
 
 
-def phase_main_path():
-    """Full-width enhance through the kernel and through the unfused chain;
-    returns the model and the kernel run's launch counts."""
-    from open_universe_tpu_torch.models.presets import universepp
-    from open_universe_tpu_torch.ops import kernels
+def counted_enhance(model, mix, noise, dtype=None):
+    """enhance with the kernels on; its output and the launches it made."""
     from open_universe_tpu_torch.ops.kernels import conv_block
+
+    conv_block.launches.clear()
+    out = model.enhance(mix, n_steps=N_STEPS, noise=noise, compute_dtype=dtype)
+    torch.cuda.synchronize()
+    return out, dict(conv_block.launches)
+
+
+def unfused_enhance(model, mix, noise, dtype=None):
+    from open_universe_tpu_torch.ops import kernels
+
+    kernels.enable(False)
+    try:
+        out = model.enhance(mix, n_steps=N_STEPS, noise=noise, compute_dtype=dtype)
+    finally:
+        kernels.enable(True)
+    torch.cuda.synchronize()
+    return out
+
+
+def check_path(tag, counts, widths, route, out, t):
+    """A main-path run: its output's shape and values, and its launches: one
+    per ConvBlock, all on ``route``, at every width of the model, the rows
+    entry exactly where P = 128 // C > 1 (this batch is <= 64)."""
+    launches = sum(counts.values())
+    log(f"[{tag}] enhance -> {tuple(out.shape)}: {launches} launches {by_entry(counts)} "
+        f"{by_route(counts)}, max|out| = {out.float().abs().max().item():.3e}")
+    for (entry, r, c, t_c, film, cond), n in sorted(counts.items()):
+        log(f"[{tag}]   {entry:22s} {r} C={c:3d} T={t_c:5d} film={film:d} cond={cond:d}: "
+            f"{n} launches")
+    if tuple(out.shape) != (out.shape[0], t) or not torch.isfinite(out).all():
+        raise AssertionError(f"{tag}: enhance output has the wrong shape or is not finite")
+    if launches != PATH_LAUNCHES:
+        raise AssertionError(f"{tag}: expected {PATH_LAUNCHES} kernel launches, counted {launches}")
+    if {k[2] for k in counts} != set(widths) or set(by_route(counts)) != {route}:
+        raise AssertionError(f"{tag}: kernel launched as {sorted(counts)}")
+    wrong = [k for k in counts
+             if (k[0] == "fused_conv_chain_rows") != (128 // k[2] > 1)]
+    if wrong or len(by_entry(counts)) != 2:
+        raise AssertionError(f"{tag}: launches split between the entries as {counts}")
+
+
+def phase_main_path():
+    """Full-width enhance through the kernel (f32, then bf16) and through the
+    unfused chain; returns the model and each kernel run's launch counts."""
+    from open_universe_tpu_torch.models.presets import universepp
     from open_universe_tpu_torch.utils.convert import fold_weight_norm
 
     model = fold_weight_norm(universepp(FS, device=DEVICE, seed=0))
@@ -241,38 +355,73 @@ def phase_main_path():
     mix = torch.randn(2, t, generator=g, device=DEVICE) * 0.05
     noise = noise_draws(model, 2, t, seed=2)
 
-    conv_block.launches.clear()
-    out_k = model.enhance(mix, n_steps=N_STEPS, noise=noise)
-    torch.cuda.synchronize()
-    counts = dict(conv_block.launches)
-    launches = sum(counts.values())
-    kernels.enable(False)
-    try:
-        out_u = model.enhance(mix, n_steps=N_STEPS, noise=noise)
-    finally:
-        kernels.enable(True)
-    torch.cuda.synchronize()
-    diff = (out_k - out_u).abs().max().item()
-    log(f"[main] enhance (2, {t}) -> {tuple(out_k.shape)}: kernel launches "
-        f"{launches} {by_entry(counts)}, max|kernel - unfused| = {diff:.3e}, "
-        f"max|out| = {out_k.abs().max().item():.3e}")
-    for (entry, c, t_c, film, cond), n in sorted(counts.items()):
-        log(f"[main]   {entry:22s} C={c:3d} T={t_c:5d} film={film:d} cond={cond:d}: "
-            f"{n} launches")
-    if tuple(out_k.shape) != (2, t) or not torch.isfinite(out_k).all():
-        raise AssertionError("enhance output has the wrong shape or is not finite")
-    if launches != PATH_LAUNCHES:
-        raise AssertionError(f"expected {PATH_LAUNCHES} kernel launches, counted {launches}")
-    if {c for _, c, *_ in counts} != set(WIDTH_LENGTHS):
-        raise AssertionError(f"kernel launched at widths {sorted(counts)}")
-    # nn/blocks.py: batch <= 64 takes the rows entry where P = 128 // C > 1
-    wrong = [k for k in counts
-             if (k[0] == "fused_conv_chain_rows") != (k[1] < 128)]
-    if wrong or len(by_entry(counts)) != 2:
-        raise AssertionError(f"launches split between the entries as {counts}")
+    out_k, counts = counted_enhance(model, mix, noise)
+    diff = (out_k - unfused_enhance(model, mix, noise)).abs().max().item()
+    check_path("main", counts, WIDTH_LENGTHS, F32, out_k, t)
+    log(f"[main] f32: max|kernel - unfused| = {diff:.3e} (bound 1e-4)")
     if not diff <= 1e-4:
         raise AssertionError(f"kernel path and unfused chain differ by {diff}")
-    return model, counts
+
+    out_b, counts_bf16 = counted_enhance(model, mix, noise, torch.bfloat16)
+    check_path("main bf16", counts_bf16, WIDTH_LENGTHS, BF16, out_b, t)
+    diff_bf16 = (out_b - unfused_enhance(model, mix, noise, torch.bfloat16)).abs().max().item()
+    log(f"[main bf16] max|kernel - unfused| = {diff_bf16:.3e} (no bound: bf16 "
+        f"networks round at other points in the unfused chain)")
+    return model, counts, counts_bf16, dict(f32=diff, bf16=diff_bf16)
+
+
+def phase_24k():
+    """The 24 kHz model: a reference-layout checkpoint of universepp(24000)
+    with config/model/universepp_24k.yaml beside it, loaded by load_model
+    through the registry; enhance both ways at f32; one 2 s request served
+    over HTTP; then each launched shape alone at batch 128 in bf16."""
+    from open_universe_tpu_torch.bin.serve import make_server
+    from open_universe_tpu_torch.inference.model_loader import load_model
+    from open_universe_tpu_torch.ops.kernels import conv_block
+
+    with tempfile.TemporaryDirectory() as tmp:
+        model = load_model(write_checkpoint(tmp, 24000, "universepp_24k.yaml"),
+                           device=DEVICE)
+    fs = int(model.fs)
+    t = int(CLIP_S * fs)
+    g = torch.Generator(device=DEVICE).manual_seed(11)
+    mix = torch.randn(2, t, generator=g, device=DEVICE) * 0.05
+    noise = noise_draws(model, 2, t, seed=12)
+    out_k, counts = counted_enhance(model, mix, noise)
+    diff = (out_k - unfused_enhance(model, mix, noise)).abs().max().item()
+    check_path("24k", counts, WIDTH_LENGTHS_24K, F32, out_k, t)
+    log(f"[24k] universepp_24k.yaml checkpoint via load_model, fs {fs}, tot_ds "
+        f"{model.tot_ds}: max|kernel - unfused| = {diff:.3e} (bound 1e-4)")
+    if not diff <= 1e-4:
+        raise AssertionError(f"24 kHz kernel path and unfused chain differ by {diff}")
+    del mix, noise, out_k
+
+    server, service = make_server(model, model_name="universepp-24k-seeded", port=0,
+                                  max_batch=SERVE_BATCH, batch_window_ms=50.0,
+                                  bucket_seconds=BUCKET_S)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    try:
+        conv_block.launches.clear()
+        x = (0.05 * np.random.default_rng(13).standard_normal(t)).astype(np.float32)
+        t0 = time.perf_counter()
+        status, body = post(f"http://127.0.0.1:{server.server_address[1]}", wav_bytes(x, fs))
+        served_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        served = dict(conv_block.launches)
+    finally:
+        server.shutdown()
+        service.close()
+    out = wav_decode(body) if status == 200 else None
+    log(f"[24k] one 2 s request served: status {status}, {served_ms:.1f} ms, launches "
+        f"{by_entry(served)} {by_route(served)}")
+    if out is None or out.shape != (1, t) or not np.isfinite(out).all():
+        raise AssertionError(f"24 kHz request answered {status}: {body[:200]}")
+    if sum(served.values()) != PATH_LAUNCHES or set(by_route(served)) != {F32}:
+        raise AssertionError(f"24 kHz request launched the kernel as {served}")
+    del model, server, service
+    return dict(kernel_vs_unfused=diff, launches=by_entry(counts),
+                served_ms=served_ms, served_launches=by_entry(served)), \
+        time_shapes(by_shape(counts), TIMING_BATCH, tag="24k")
 
 
 def timed_enhance(model, mix, noise, fused: bool):
@@ -304,61 +453,67 @@ def chain_bound(batch, t, c, dtype, tensors):
     return moved / PEAK_BYTES_PER_S * 1e3, 22.0 * batch * t * c * c / PEAK_FLOPS[dtype] * 1e3
 
 
-def time_shapes(shape_counts, batch, rows=False):
+def time_shapes(shape_counts, batch, rows=False, tag=None):
     """The kernel entry, its plain version and the unfused chain alone at
-    each (C, T, FiLM, cond) of shape_counts, bf16, at this batch; one dict
-    per shape with its launches and bounds."""
+    each (C, T, FiLM, cond) of shape_counts at this batch, in bf16 (tensor
+    cores) and in f32 (CUDA cores); one dict per shape with its launches,
+    bounds, TFLOP/s and bound share (bf16 keys bare, f32 keys f32_*)."""
     from open_universe_tpu_torch.nn.blocks import ConvBlock
     from open_universe_tpu_torch.nn.layers import init_weights
     from open_universe_tpu_torch.ops import kernels
     from open_universe_tpu_torch.ops.kernels import conv_block
     from open_universe_tpu_torch.utils.convert import fold_weight_norm
 
-    dtype = torch.bfloat16
+    tag = tag or ("rows" if rows else "timing")
     shapes = []
     for (c, t_c, film, cond), n in sorted(shape_counts.items()):
         p = max(1, 128 // c)
-        h, weights, nc, ic = chain_inputs(batch, t_c, c, dtype, film, cond)
-        hr, icr = pack(h, c), pack(ic, c)
         block = fold_weight_norm(init_weights(ConvBlock(c, weight_norm=True))).to(DEVICE)
-        if rows:
-            def kernel():
-                conv_block.fused_conv_chain_rows(hr, p, c, *weights, noise_cond=nc,
-                                                 input_cond_rows=icr)
-
-            def plain():
-                conv_block.fused_conv_chain_rows_reference(
-                    hr, p, c, *weights, noise_cond=nc, input_cond_rows=icr)
-        else:
-            def kernel():
-                conv_block.fused_conv_chain(h, *weights, noise_cond=nc, input_cond=ic)
-
-            def plain():
-                conv_block.fused_conv_chain_reference(h, *weights, noise_cond=nc,
-                                                      input_cond=ic)
-
-        def unfused():
-            block(h, noise_cond=nc, input_cond=ic)
-
-        ms, plain_ms = cuda_ms(kernel, 10), cuda_ms(plain, 5)
-        kernels.enable(False)
-        try:
-            with torch.no_grad():
-                unfused_ms = cuda_ms(unfused, 10)
-        finally:
-            kernels.enable(True)
         flops = 22.0 * batch * t_c * c * c
-        t_bytes, t_ops = chain_bound(batch, t_c, c, dtype, [h, nc, ic, *weights])
-        shapes.append(dict(C=c, T=t_c, film=film, cond=cond, launches=n, ms=ms,
-                           plain_ms=plain_ms, unfused_ms=unfused_ms,
-                           bytes_ms=t_bytes, ops_ms=t_ops))
-        log(f"[{'rows' if rows else 'timing'}] C={c:3d} T={t_c:5d} film={film:d} "
-            f"cond={cond:d} B={batch} bf16 x{n}: kernel {ms:.4f} ms "
-            f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
-            f"unfused chain {unfused_ms:.4f} ms, bound "
-            f"{max(t_bytes, t_ops):.4f} ms "
-            f"({'bytes' if t_bytes >= t_ops else 'operations'})")
-        del h, weights, nc, ic, hr, icr, block
+        shape = dict(C=c, T=t_c, film=film, cond=cond, launches=n)
+        for dtype, key in ((torch.bfloat16, ""), (torch.float32, "f32_")):
+            h, weights, nc, ic = chain_inputs(batch, t_c, c, dtype, film, cond)
+            hr, icr = pack(h, c), pack(ic, c)
+            if rows:
+                def kernel():
+                    conv_block.fused_conv_chain_rows(hr, p, c, *weights, noise_cond=nc,
+                                                     input_cond_rows=icr)
+
+                def plain():
+                    conv_block.fused_conv_chain_rows_reference(
+                        hr, p, c, *weights, noise_cond=nc, input_cond_rows=icr)
+            else:
+                def kernel():
+                    conv_block.fused_conv_chain(h, *weights, noise_cond=nc, input_cond=ic)
+
+                def plain():
+                    conv_block.fused_conv_chain_reference(h, *weights, noise_cond=nc,
+                                                          input_cond=ic)
+
+            def unfused():
+                block(h, noise_cond=nc, input_cond=ic)
+
+            ms, plain_ms = cuda_ms(kernel, 10), cuda_ms(plain, 3 if key else 5)
+            kernels.enable(False)
+            try:
+                with torch.no_grad():
+                    unfused_ms = cuda_ms(unfused, 5 if key else 10)
+            finally:
+                kernels.enable(True)
+            t_bytes, t_ops = chain_bound(batch, t_c, c, dtype, [h, nc, ic, *weights])
+            bound = max(t_bytes, t_ops)
+            shape.update({f"{key}ms": ms, f"{key}plain_ms": plain_ms,
+                          f"{key}unfused_ms": unfused_ms, f"{key}bytes_ms": t_bytes,
+                          f"{key}ops_ms": t_ops, f"{key}tflops": flops / ms / 1e9,
+                          f"{key}bound_share": bound / ms})
+            log(f"[{tag}] C={c:3d} T={t_c:5d} film={film:d} cond={cond:d} B={batch} x{n} "
+                f"{str(dtype)[6:]}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+                f"{bound / ms:.3f} of bound {bound:.4f} ms by "
+                f"{'bytes' if t_bytes >= t_ops else 'operations'}), plain {plain_ms:.4f}, "
+                f"unfused chain {unfused_ms:.4f}")
+            del h, weights, nc, ic, hr, icr
+        shapes.append(shape)
+        del block
     return shapes
 
 
@@ -400,13 +555,13 @@ def phase_small_batch(model, rows_shapes):
     return rates, time_shapes(rows_shapes, SERVE_BATCH, rows=True), inputs[1]
 
 
-def default_model_config() -> dict:
-    """The model node of config/model/default.yaml with its
+def model_config(name: str) -> dict:
+    """The model node of config/model/<name> with its
     ${model.score_model.*} references written out."""
     import yaml
 
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "config", "model", "default.yaml")
+                        "config", "model", name)
     with open(path) as f:
         node = yaml.safe_load(f)
     ref = re.compile(r"^\$\{model\.score_model\.(\w+)\}$")
@@ -418,8 +573,9 @@ def default_model_config() -> dict:
     return node
 
 
-def write_checkpoint(directory: str) -> str:
-    """A reference-layout Lightning checkpoint of universepp(16000, seed=0):
+def write_checkpoint(directory: str, fs: int = FS, config: str = "default.yaml") -> str:
+    """A reference-layout Lightning checkpoint of universepp(fs, seed=0),
+    with config/model/<config>'s model node beside it as config.yaml:
     weight norm unfolded, the score model under the EDM ``_edm_model.``
     prefix, raw weights at half the EMA shadow, which holds the seeded
     weights."""
@@ -429,7 +585,7 @@ def write_checkpoint(directory: str) -> str:
     from open_universe_tpu_torch.models.presets import universepp
 
     shadow_sd = {re.sub(r"^score_model\.", "_edm_model.", k): v.detach().cpu().clone()
-                 for k, v in universepp(FS, device="cpu", seed=0).state_dict().items()}
+                 for k, v in universepp(fs, device="cpu", seed=0).state_dict().items()}
     names = ordered_param_names(
         shadow_sd, ["_edm_model", "condition_model", "signal_decoupling_layer"])
     raw_sd = {k: v * 0.5 if k in names else v for k, v in shadow_sd.items()}
@@ -438,15 +594,15 @@ def write_checkpoint(directory: str) -> str:
                 "ema": {"shadow_params": [shadow_sd[n] for n in names],
                         "decay": 0.999, "num_updates": 1000}}, path)
     with open(os.path.join(directory, "config.yaml"), "w") as f:
-        yaml.safe_dump({"model": default_model_config()}, f)
+        yaml.safe_dump({"model": model_config(config)}, f)
     return path
 
 
-def wav_bytes(x: np.ndarray) -> bytes:
+def wav_bytes(x: np.ndarray, fs: int = FS) -> bytes:
     from open_universe_tpu_torch.data.audio import save_audio
 
     with tempfile.NamedTemporaryFile(suffix=".wav") as f:
-        save_audio(f.name, x, FS)
+        save_audio(f.name, x, fs)
         return open(f.name, "rb").read()
 
 
@@ -671,11 +827,13 @@ def main() -> int:
     import open_universe_tpu_torch  # noqa: F401  (fails outside the repo)
 
     t_start = time.perf_counter()
-    phase_build()
+    build_s, ptxas = phase_build()
     worst = phase_kernel_vs_plain()
     worst_rows = phase_kernel_vs_plain(rows=True)
-    model, counts = phase_main_path()
-    entries = by_entry(counts)
+    model, counts, counts_bf16, path_diff = phase_main_path()
+    hz24, shapes_24k = phase_24k()
+    main_counts = {**counts, **counts_bf16}  # keys differ by route
+    entries = by_entry(main_counts)
     # at batch 128 every block takes the unpacked entry, at these shapes
     rates, shapes, mix, noise = phase_timing(model, by_shape(counts))
     small_rates, rows_shapes, (mix1, noise1) = phase_small_batch(
@@ -689,51 +847,68 @@ def main() -> int:
     def total(key, shapes=shapes):
         return sum(s[key] * s["launches"] for s in shapes)
 
-    def bound(shapes):
-        return dict(
-            bound_ms=sum(max(s["bytes_ms"], s["ops_ms"]) * s["launches"] for s in shapes),
-            bound_by=("bytes" if total("bytes_ms", shapes) >= total("ops_ms", shapes)
-                      else "operations"))
+    def sums(shapes, key=""):
+        """Per-enhance sums over shapes timed alone, times their launches,
+        of the bf16 (key "") or the f32 (key "f32_") route."""
+        bytes_ms, ops_ms = total(f"{key}bytes_ms", shapes), total(f"{key}ops_ms", shapes)
+        return {f"{key}ms": total(f"{key}ms", shapes),
+                f"{key}plain_ms": total(f"{key}plain_ms", shapes),
+                f"{key}bound_ms": sum(max(s[f"{key}bytes_ms"], s[f"{key}ops_ms"])
+                                      * s["launches"] for s in shapes),
+                f"{key}bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                f"{key}library_ms": None,
+                f"{key}unfused_ms": total(f"{key}unfused_ms", shapes)}
+
+    def routes(entry):
+        return {BF16: "open_universe_tpu_torch/csrc/conv_block_tc.cu",
+                F32: "open_universe_tpu_torch/csrc/conv_block.cu",
+                "launches": by_route({k: n for k, n in main_counts.items()
+                                      if k[0] == entry})}
 
     kernel_line = {"kernels": [{
         "name": "fused_conv_chain",
         "route": "cuda",
-        "source": "open_universe_tpu_torch/csrc/conv_block.cu",
+        "source": "open_universe_tpu_torch/csrc/conv_block_tc.cu",
         "replaces": "open_universe_tpu/ops/pallas/conv_block.py:180",
-        # launches in phase 3 (batch 2: the blocks of C >= 128)
+        # launches in phase 3's two runs (batch 2, f32 and bf16: the blocks
+        # of C >= 128 each time)
         "launches": entries["fused_conv_chain"],
-        "max_abs_err": worst,
-        # per enhance of batch 128 x 2 s in bf16 (all 94 blocks): each
-        # (C, T, FiLM, cond) timed alone, times its launches in phase 3
-        "ms": total("ms"),
-        "plain_ms": total("plain_ms"),
-        **bound(shapes),
-        "library_ms": None,
-        "unfused_ms": total("unfused_ms"),
+        "max_abs_err": max(worst.values()),
+        # per enhance of batch 128 x 2 s in bf16 (all 94 blocks, tensor-core
+        # route): each (C, T, FiLM, cond) timed alone, times its launches in
+        # phase 3; the f32_* keys are the CUDA-core route at the same shapes
+        **sums(shapes), **sums(shapes, "f32_"),
+        "routes": routes("fused_conv_chain"),
+        "max_abs_err_by_route": worst,
+        "widths": list(WIDTH_LENGTHS) + list(WIDTH_LENGTHS_24K),
         "audio_s_per_s": {"kernel": rates[True], "unfused": rates[False]},
-        "per_shape": shapes,
+        "main_path_kernel_vs_unfused": path_diff,
+        "build_s": build_s,
+        "registers": {k["kernel"]: k["registers"] for ks in ptxas.values() for k in ks},
+        "spills": [k["kernel"] for ks in ptxas.values() for k in ks if k["spills"]],
+        # universepp_24k.yaml: enhance at f32 (phase 3c), shapes at batch 128
+        # (each shape's numbers are on the [24k] lines above)
+        "universepp_24k": {**hz24, **sums(shapes_24k), **sums(shapes_24k, "f32_")},
         "profile": profiled,
     }, {
         "name": "fused_conv_chain_rows",
         "route": "cuda",
-        "source": "open_universe_tpu_torch/csrc/conv_block.cu",
+        "source": "open_universe_tpu_torch/csrc/conv_block_tc.cu",
         "replaces": "open_universe_tpu/ops/pallas/conv_block.py:216",
-        # launches while serving (phase 6)
-        "launches": serve_entries.get("fused_conv_chain_rows", 0),
-        "max_abs_err": worst_rows,
+        # launches in phase 3's two runs (C = 32, 64)
+        "launches": entries["fused_conv_chain_rows"],
+        "max_abs_err": max(worst_rows.values()),
         # per enhance of batch 16 x 2 s in bf16 (the blocks of C < 128):
-        # each (C, T, FiLM, cond) timed alone, times its launches in phase 3
-        "ms": total("ms", rows_shapes),
-        "plain_ms": total("plain_ms", rows_shapes),
-        **bound(rows_shapes),
-        "library_ms": None,
-        "unfused_ms": total("unfused_ms", rows_shapes),
+        # each (C, T, FiLM, cond) timed alone, times its launches in phase 3;
+        # f32_* as above
+        **sums(rows_shapes), **sums(rows_shapes, "f32_"),
+        "routes": routes("fused_conv_chain_rows"),
+        "max_abs_err_by_route": worst_rows,
         "launches_per_enhance": entries,
         "serving_launches": serve_entries,
         "enhance_small_batch": small_rates,
         "profile_batch1": profiled_1,
         "serving": served,
-        "per_shape": rows_shapes,
     }]}
     print(card_line(), flush=True)
     print(json.dumps(kernel_line), flush=True)

@@ -1,8 +1,11 @@
-// Fused UNIVERSE ConvBlock conv chain for Hopper (sm_90a).
+// Fused UNIVERSE ConvBlock conv chain for Hopper (sm_90a), float32 on the
+// CUDA cores.
 //
-// Replaces the Pallas TPU kernel open_universe_tpu/ops/pallas/conv_block.py
-// (fused_conv_chain / fused_conv_chain_rows, body `_kernel`).  It computes,
-// for h (B, T, C) and folded weights in the (K, Cin, Cout) layout:
+// Replaces, for float32 storage, the Pallas TPU kernel
+// open_universe_tpu/ops/pallas/conv_block.py (fused_conv_chain /
+// fused_conv_chain_rows, body `_kernel`); bf16 runs on the tensor cores in
+// conv_block_tc.cu.  It computes, for h (B, T, C) and folded weights in the
+// (K, Cin, Cout) layout:
 //
 //   cond_out = conv5(prelu1(h)) + b5
 //   c        = cond_out [+ input_cond then * sqrt(1/2)]
@@ -12,49 +15,43 @@
 //
 // Every conv is 'same' with zero padding, and every intermediate is zero
 // outside [0, T), as a chain of separately padded convs sees it.  Sums are
-// taken in f32; values are rounded to the storage type (f32 or bf16) at the
-// same points as the TPU kernel: after FiLM, after each PReLU product, after
-// conv3a, and on output.  The three PReLU slopes are float32 whatever the
-// storage type, as the TPU kernel takes them.
+// taken in f32.  The rounding helpers below (round_t, prelu_t) mark the
+// points where the TPU kernel rounds to the storage type: after FiLM, after
+// each PReLU product, after conv3a, and on output; they are exact in f32.
 //
 // What bounds it on the H100.  The chain does 22*B*T*C^2 FLOPs and must move
-// 3*B*T*C elements (h, v, cond_out), 4*B*T*C with input_cond: 1.4*C to
-// 1.8*C FLOPs per byte in f32, 2.8*C to 3.7*C in bf16.  Against the CUDA
-// cores' f32 balance (67 TFLOP/s over 3.35 TB/s, ~20 FLOP/byte) every C on
-// the path (32..512) is bound by operations; against the bf16 tensor cores
-// (~295 FLOP/byte) C = 32 and 64 are bound by bytes and C >= 128 by
-// operations.  The unfused chain writes and reads each of its ~12
-// intermediates through device memory; this kernel keeps all of them in
-// shared memory, so device traffic is the fused minimum plus the 4-row halo.
+// 3*B*T*C f32 values (h, v, cond_out), 4*B*T*C with input_cond: 1.4*C to
+// 1.8*C FLOPs per byte.  Against the CUDA cores' f32 balance (67 TFLOP/s
+// over 3.35 TB/s, ~20 FLOP/byte) every C on the path (32..768) is bound by
+// operations.  The tensor cores' TF32 (about 3 decimal digits) would not
+// hold the f32 gate of 1e-4 max|ref|, so f32 stays on the CUDA cores.  The
+// unfused chain writes and reads each of its ~12 intermediates through
+// device memory; this kernel keeps all of them in shared memory, so device
+// traffic is the fused minimum plus the 4-row halo.
 //
-// Design (simple first): one block of 256 threads per (batch row, tile of
-// TT time steps).  The block stages prelu1(h) for [t0-4, t0+TT+4) in shared
-// memory, computes conv5 over TT+4 rows into a second buffer, conv3a over
-// TT+2 rows back into the first, and conv3b over the TT centre rows straight
-// to the output.  Each thread owns 4 consecutive output channels and RPT rows
-// (register tile 4 x RPT), reads the weights as one 16-byte (f32) or 8-byte
-// (bf16) load per tap and input channel from global memory (L1/L2 resident)
-// and the activations from shared memory (broadcast within a warp).  The
-// FMAs run on the CUDA cores in f32; tensor cores (wgmma), TMA staging and
-// tuning are later work.  TT is picked per C so that the two float buffers
-// stay under ~100 KB, which keeps two blocks per SM.
+// Design (simple first): one block per (batch row, tile of TT time steps).
+// The block stages prelu1(h) for [t0-4, t0+TT+4) in shared memory, computes
+// conv5 over TT+4 rows into a second buffer, conv3a over TT+2 rows back
+// into the first, and conv3b over the TT centre rows straight to the
+// output.  Each thread owns 4 consecutive output channels and RPT rows
+// (register tile 4 x RPT), reads the weights as one 16-byte load per tap and
+// input channel from global memory (L1/L2 resident) and the activations
+// from shared memory (broadcast within a warp).  The block has 256 threads
+// where C/4 divides 256 (C = 32..512, powers of two) and 192 at the widths
+// of the 24 kHz model (C = 48..768, C/4 = 12..192).  TT is picked per C so
+// that the two float buffers stay under ~100 KB, which keeps two blocks per
+// SM.
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr float kSqrtHalf = 0.70710678118654752440f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // round a float to the storage type and back
 template <typename T> __device__ __forceinline__ float round_t(float x) {
@@ -72,34 +69,31 @@ __device__ __forceinline__ void load4(const float* p, float (&w)[4]) {
   w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
 }
 
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&w)[4]) {
-  uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
-  __nv_bfloat162 lo = *reinterpret_cast<__nv_bfloat162*>(&v.x);
-  __nv_bfloat162 hi = *reinterpret_cast<__nv_bfloat162*>(&v.y);
-  float2 a = __bfloat1622float2(lo);
-  float2 b = __bfloat1622float2(hi);
-  w[0] = a.x; w[1] = a.y; w[2] = b.x; w[3] = b.y;
-}
-
-// Time tile per channel width: the two float buffers hold (TT+8) and (TT+4)
-// rows of C+1 floats.
+// Time tile and threads per channel width: the two float buffers hold
+// (TT+8) and (TT+4) rows of C+1 floats.
 template <int C> struct Tile;
-template <> struct Tile<32> { static constexpr int TT = 256; };
-template <> struct Tile<64> { static constexpr int TT = 128; };
-template <> struct Tile<128> { static constexpr int TT = 64; };
-template <> struct Tile<256> { static constexpr int TT = 32; };
-template <> struct Tile<512> { static constexpr int TT = 16; };
+template <> struct Tile<32> { static constexpr int TT = 256, THREADS = 256; };
+template <> struct Tile<48> { static constexpr int TT = 128, THREADS = 192; };
+template <> struct Tile<64> { static constexpr int TT = 128, THREADS = 256; };
+template <> struct Tile<96> { static constexpr int TT = 64, THREADS = 192; };
+template <> struct Tile<128> { static constexpr int TT = 64, THREADS = 256; };
+template <> struct Tile<192> { static constexpr int TT = 32, THREADS = 192; };
+template <> struct Tile<256> { static constexpr int TT = 32, THREADS = 256; };
+template <> struct Tile<384> { static constexpr int TT = 16, THREADS = 192; };
+template <> struct Tile<512> { static constexpr int TT = 16, THREADS = 256; };
+template <> struct Tile<768> { static constexpr int TT = 8, THREADS = 192; };
 
 template <int C> struct Geometry {
   static constexpr int TT = Tile<C>::TT;
+  static constexpr int THREADS = Tile<C>::THREADS;
   static constexpr int LD = C + 1;           // padded row stride (banks)
   static constexpr int CG = C / 4;           // channel groups of 4
-  static constexpr int RG = kThreads / CG;   // row groups
+  static constexpr int RG = THREADS / CG;    // row groups
   static constexpr int ROWS_A = TT + 8;
   static constexpr int ROWS_B = TT + 4;
   static constexpr int RPT = (TT + 4 + RG - 1) / RG;  // rows per thread
   static constexpr size_t SMEM = size_t(ROWS_A + ROWS_B) * LD * sizeof(float);
-  static_assert(kThreads % CG == 0, "C/4 must divide the block");
+  static_assert(THREADS % CG == 0, "C/4 must divide the block");
 };
 
 // acc[i][q] = sum_{k, ci} in[(r_i + k) * LD + ci] * w[(k * C + ci) * C + co + q]
@@ -137,7 +131,7 @@ __device__ __forceinline__ void conv_acc(const float* __restrict__ in,
 }
 
 template <typename T, int C>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Geometry<C>::THREADS)
 conv_block_kernel(const T* __restrict__ h, const T* __restrict__ w5,
                   const T* __restrict__ b5, const float* __restrict__ a1p,
                   const T* __restrict__ w3a, const T* __restrict__ b3a,
@@ -156,7 +150,7 @@ conv_block_kernel(const T* __restrict__ h, const T* __restrict__ w5,
   const T* hb = h + size_t(b) * t_len * C;
 
   // stage prelu1(h) for t in [t0-4, t0+TT+4), zero outside [0, T)
-  for (int idx = threadIdx.x; idx < G::ROWS_A * C; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < G::ROWS_A * C; idx += G::THREADS) {
     int r = idx / C, c = idx - r * C;
     int t = t0 - 4 + r;
     float x = 0.f;
@@ -247,7 +241,7 @@ cudaError_t launch(const void* h, const void* w5, const void* b5, const void* a1
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(G::SMEM));
   if (err != cudaSuccess) return err;
   dim3 grid((t_len + G::TT - 1) / G::TT, batch);
-  kernel<<<grid, kThreads, G::SMEM, stream>>>(
+  kernel<<<grid, G::THREADS, G::SMEM, stream>>>(
       static_cast<const T*>(h), static_cast<const T*>(w5),
       static_cast<const T*>(b5), static_cast<const float*>(a1),
       static_cast<const T*>(w3a), static_cast<const T*>(b3a),
@@ -258,45 +252,29 @@ cudaError_t launch(const void* h, const void* w5, const void* b5, const void* a1
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(int c, const void* h, const void* w5, const void* b5,
-                     const void* a1, const void* w3a, const void* b3a,
-                     const void* a2, const void* w3b, const void* b3b,
-                     const void* a3, const void* film, const void* cond, void* v,
-                     void* cond_out, int batch, int t_len, cudaStream_t stream) {
-#define OU_CASE(CC)                                                          \
-  case CC:                                                                   \
-    return launch<T, CC>(h, w5, b5, a1, w3a, b3a, a2, w3b, b3b, a3, film,   \
-                         cond, v, cond_out, batch, t_len, stream);
-  switch (c) {
-    OU_CASE(32) OU_CASE(64) OU_CASE(128) OU_CASE(256) OU_CASE(512)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef OU_CASE
-}
-
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16, the type of every tensor but the slopes
-// a1..a3 (float32).  film and cond may be null.  Returns the
+// Every tensor is float32.  film and cond may be null.  Returns the
 // cudaError_t of the launch (0 on success); the wrapper checks shapes.
-int ou_conv_block(int dtype, const void* h, const void* w5, const void* b5,
+int ou_conv_block(const void* h, const void* w5, const void* b5,
                   const void* a1, const void* w3a, const void* b3a,
                   const void* a2, const void* w3b, const void* b3b,
                   const void* a3, const void* film, const void* cond, void* v,
                   void* cond_out, int batch, int t_len, int c, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch<float>(c, h, w5, b5, a1, w3a, b3a, a2, w3b, b3b, a3, film,
-                           cond, v, cond_out, batch, t_len, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(c, h, w5, b5, a1, w3a, b3a, a2, w3b, b3b,
-                                   a3, film, cond, v, cond_out, batch, t_len,
-                                   s);
-  return cudaErrorInvalidValue;
+#define OU_CASE(CC)                                                         \
+  case CC:                                                                  \
+    return launch<float, CC>(h, w5, b5, a1, w3a, b3a, a2, w3b, b3b, a3,     \
+                             film, cond, v, cond_out, batch, t_len, s);
+  switch (c) {
+    OU_CASE(32) OU_CASE(48) OU_CASE(64) OU_CASE(96) OU_CASE(128)
+    OU_CASE(192) OU_CASE(256) OU_CASE(384) OU_CASE(512) OU_CASE(768)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef OU_CASE
 }
 
 }  // extern "C"

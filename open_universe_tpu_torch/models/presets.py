@@ -22,11 +22,15 @@ Device = Optional[Union[str, torch.device]]
 
 
 def universepp(fs: int = 16000, device: Device = None, seed: int = 0) -> UniverseGAN:
-    """UNIVERSE++ 16 kHz (reference config/model/default.yaml)."""
+    """UNIVERSE++ at 16 kHz (reference config/model/default.yaml) or 24 kHz
+    (config/model/universepp_24k.yaml)."""
     device = resolve_device(device)
-    if fs != 16000:
-        raise ValueError(f"only the 16 kHz UNIVERSE++ preset is ported, not fs={fs}")
-    rate_factors, n_channels, n_mels = [2, 4, 4, 5], 32, 80
+    if fs == 16000:
+        rate_factors, n_channels, n_mels = [2, 4, 4, 5], 32, 80
+    elif fs == 24000:
+        rate_factors, n_channels, n_mels = [2, 3, 5, 8], 48, 128
+    else:
+        raise ValueError(f"UNIVERSE++ has presets at 16000 and 24000 Hz, not fs={fs}")
     score = ScoreNetwork(
         fb_kernel_size=3, rate_factors=rate_factors, n_channels=n_channels,
         n_rff=32, noise_cond_dim=512, extra_conv_block=True,

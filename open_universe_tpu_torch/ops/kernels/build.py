@@ -1,10 +1,10 @@
 """Builds the port's CUDA sources (``csrc/*.cu``) at first use.
 
 Each source compiles with ``nvcc`` into a shared library with a plain C
-interface, loaded with ``ctypes``.  Libraries go to ``_build/`` inside the
-package (git-ignored), named by a hash of the source and the flags, so an
-edited source builds anew and an unchanged one is reused.  A failed build
-raises.
+interface, loaded with ``ctypes``; ``build`` starts one ``nvcc`` per source,
+all at once.  Libraries go to ``_build/`` inside the package (git-ignored),
+named by a hash of the source and the flags, so an edited source builds
+anew and an unchanged one is reused.  A failed build raises.
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -45,23 +45,34 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library exists; its path."""
-    out = library_path(name)
-    if out.exists():
-        return out
+def build(*names: str) -> List[Path]:
+    """Compile each ``csrc/<name>.cu`` whose library does not exist, one
+    ``nvcc`` per source, all running at once; the libraries' paths."""
+    outs = [library_path(name) for name in names]
+    todo = [(name, out) for name, out in zip(names, outs) if not out.exists()]
+    if not todo:
+        return outs
+    compiler = nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    log = out.with_suffix(".log")
-    with open(log, "w") as f:
-        rc = subprocess.run(
-            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")],
-            stdout=f, stderr=subprocess.STDOUT).returncode
-    if rc != 0:
-        raise RuntimeError(f"kernel build failed: {name}: nvcc exit {rc}\n"
-                           + log.read_text())
-    os.replace(tmp, out)
-    return out
+    running = []
+    for name, out in todo:
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        with open(out.with_suffix(".log"), "w") as log:  # the child keeps its copy
+            proc = subprocess.Popen(
+                [compiler, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")],
+                stdout=log, stderr=subprocess.STDOUT)
+        running.append((name, out, tmp, proc))
+    failed = []
+    for name, out, tmp, proc in running:
+        rc = proc.wait()
+        if rc != 0:
+            failed.append(f"kernel build failed: {name}: nvcc exit {rc}\n"
+                          + out.with_suffix(".log").read_text())
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
 def build_log(name: str) -> str:
@@ -75,6 +86,5 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            path = build(name)
-            lib = _LIBS[name] = ctypes.CDLL(str(path))
+            lib = _LIBS[name] = ctypes.CDLL(str(build(name)[0]))
         return lib

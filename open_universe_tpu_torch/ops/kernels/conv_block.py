@@ -1,4 +1,4 @@
-"""Fused UNIVERSE ConvBlock conv chain: CUDA kernel, wrapper, plain version.
+"""Fused UNIVERSE ConvBlock conv chain: CUDA kernels, wrapper, plain version.
 
 The chain (JAX: ``ops/pallas/conv_block.py``, our ``nn/blocks.py``)
 
@@ -6,11 +6,16 @@ The chain (JAX: ``ops/pallas/conv_block.py``, our ``nn/blocks.py``)
     c        = film((cond_out [+ input_cond]) * sqrt(1/2), noise_cond)
     v        = (h + conv3b(prelu3(conv3a(prelu2(c))))) * sqrt(1/2)
 
-runs in one launch of ``csrc/conv_block.cu`` on a CUDA tensor, and as
+runs in one kernel launch on a CUDA tensor, and as
 ``fused_conv_chain_reference`` on a CPU tensor.  Both take folded weights in
 the JAX layout (K, Cin, Cout) and h's dtype, the three PReLU slopes in
 float32 (as the JAX kernel takes them), h in (B, T, C), and return
-(v, cond_out).
+(v, cond_out).  Two routes, one per dtype, at the widths ``WIDTHS`` (every
+ConvBlock width of the UNIVERSE++ 16 and 24 kHz presets): bfloat16 launches
+``csrc/conv_block_tc.cu`` on the tensor cores, with the weights in
+``mma_weights``'s fragment order (made once per weight tensor); float32
+launches ``csrc/conv_block.cu`` on the CUDA cores.  Neither stands in for
+the other: a kernel that does not build or launch raises.
 
 ``fused_conv_chain_rows`` is the same chain on the JAX package's lane-packed
 rows (B, T/P, P*C), P = max(1, 128 // C).  Row r, lane p*C + c holds sample
@@ -18,8 +23,9 @@ r*P + p, channel c: the same contiguous bytes as (B, T, C), so it launches
 the same kernel on a view.  The TPU kernel's block-Toeplitz weight packing
 only fills the TPU's 128 lanes and has no counterpart here.
 
-``launches`` counts each launch by (entry, C, T, with FiLM, with cond);
-``launches.clear()`` sets every count to 0.  The plain version is no launch.
+``launches`` counts each launch by (entry, route, C, T, with FiLM, with
+cond), route one of ``ROUTES``' names; ``launches.clear()`` sets every count
+to 0.  The plain version is no launch.
 """
 from __future__ import annotations
 
@@ -34,27 +40,54 @@ import torch.nn.functional as F
 from . import build
 
 SQRT_HALF = 1.0 / math.sqrt(2.0)
-WIDTHS = (32, 64, 128, 256, 512)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+WIDTHS = (32, 48, 64, 96, 128, 192, 256, 384, 512, 768)
+# dtype -> (route name, source in csrc/, C function)
+ROUTES = {torch.float32: ("f32_cuda_cores", "conv_block", "ou_conv_block"),
+          torch.bfloat16: ("bf16_tensor_cores", "conv_block_tc", "ou_conv_block_tc")}
 
 launches: collections.Counter = collections.Counter()
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("conv_block")
-    fn = lib.ou_conv_block
+def _kernel_fn(dtype):
+    """The C entry of ``dtype``'s route, its library built and loaded."""
+    _, source, symbol = ROUTES[dtype]
+    fn = getattr(build.load(source), symbol)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 14
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    return lib
+        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    return fn
+
+
+def mma_weights_layout(w: torch.Tensor) -> torch.Tensor:
+    """(K, Cin, Cout) -> the tensor-core kernel's fragment order
+    (K, Cin/16, Cout/16, 32, 8): for tap k, 16-row block kb of Cin and
+    16-column block nb of Cout, lane 4g + q holds at position 4h + 2kh + e the
+    value w[k, 16kb + 8kh + 2q + e, 16nb + 8h + g]: the B fragments of
+    mma.m16n8k16 for the two n8 tiles h = 0, 1, in one 16-byte load."""
+    k, cin, cout = w.shape
+    x = w.reshape(k, cin // 16, 2, 4, 2, cout // 16, 2, 8)  # k kb kh q e nb h g
+    x = x.permute(0, 1, 5, 7, 3, 6, 2, 4).contiguous()      # k kb nb g q h kh e
+    return x.reshape(k, cin // 16, cout // 16, 32, 8)
+
+
+def mma_weights(w: torch.Tensor) -> torch.Tensor:
+    """``mma_weights_layout(w)``, made once per weight tensor (kept on the
+    tensor) and made anew when the tensor is written (its version moves).
+    A tensor made under ``torch.inference_mode`` has no version to follow
+    and gets a fresh copy on every call."""
+    if w.is_inference():
+        return mma_weights_layout(w)
+    cached = getattr(w, "_mma_weights", None)
+    if cached is None or cached[0] != w._version:
+        cached = w._mma_weights = (w._version, mma_weights_layout(w))
+    return cached[1]
 
 
 def _check(h, weights, noise_cond, input_cond):
     if h.dim() != 3:
         raise ValueError(f"h must be (B, T, C), got shape {tuple(h.shape)}")
     b, t, c = h.shape
-    if h.dtype not in _DTYPES:
+    if h.dtype not in ROUTES:
         raise TypeError(f"fused_conv_chain takes float32 or bfloat16, not {h.dtype}")
     if c not in WIDTHS:
         raise ValueError(f"fused_conv_chain has no kernel for C={c}; widths {WIDTHS}")
@@ -81,7 +114,7 @@ def _check(h, weights, noise_cond, input_cond):
             raise TypeError(f"{name} is {x.dtype}, expected {want_dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if name in ("w5", "w3a", "w3b") and x.data_ptr() % 16:
+        if name in ("h", "input_cond", "w5", "w3a", "w3b") and x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
@@ -100,8 +133,8 @@ def fused_conv_chain(
     input_cond: (B, T, C) additive signal conditioning.  Every tensor is
     contiguous and on h's device, and all but the slopes have h's dtype
     (float32 or bfloat16).  Returns (v, cond_out).
-    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    or raises.
+    A CPU tensor runs the plain version; a CUDA tensor launches its dtype's
+    kernel (bf16: tensor cores, f32: CUDA cores) or raises.
     """
     weights = (w5, b5, a1, w3a, b3a, a2, w3b, b3b, a3)
     if h.device.type == "cpu":
@@ -111,25 +144,29 @@ def fused_conv_chain(
 
 
 def _launch(entry, h, weights, noise_cond, input_cond):
-    """Check the operands of a CUDA call, launch the kernel on h (B, T, C)
-    and count the launch under ``entry``."""
+    """Check the operands of a CUDA call, launch the kernel of h's dtype on
+    h (B, T, C) and count the launch under ``entry`` and its route."""
     if h.device.type != "cuda":
         raise ValueError(f"{entry} runs on cpu or cuda, not {h.device}")
     _check(h, weights, noise_cond, input_cond)
     b, t, c = h.shape
+    route = ROUTES[h.dtype][0]
+    if h.dtype == torch.bfloat16:
+        weights = tuple(mma_weights(x) if i in (0, 3, 6) else x
+                        for i, x in enumerate(weights))
     v = torch.empty_like(h)
     cond_out = torch.empty_like(h)
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = _lib().ou_conv_block(
-            _DTYPES[h.dtype], h.data_ptr(),
-            *(x.data_ptr() for x in weights),
+        err = _kernel_fn(h.dtype)(
+            h.data_ptr(), *(x.data_ptr() for x in weights),
             noise_cond.data_ptr() if noise_cond is not None else None,
             input_cond.data_ptr() if input_cond is not None else None,
             v.data_ptr(), cond_out.data_ptr(), b, t, c, stream)
     if err != 0:
-        raise RuntimeError(f"conv_block kernel launch failed: cudaError_t {err}")
-    launches[(entry, c, t, noise_cond is not None, input_cond is not None)] += 1
+        raise RuntimeError(f"conv_block kernel ({route}) launch failed: "
+                           f"cudaError_t {err}")
+    launches[(entry, route, c, t, noise_cond is not None, input_cond is not None)] += 1
     return v, cond_out
 
 

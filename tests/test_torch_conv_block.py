@@ -80,19 +80,22 @@ def _close(port, ref, record_property=None):
 
 
 # the JAX kernel tests' cases: FiLM and cond on and off, several tiles
-# (tile_target=64 rows), lane packing P = 16, 4 and 1
+# (tile_target=64 rows), lane packing P = 16, 4 and 1; and the 24 kHz
+# preset's C = 48 (P = 2, 96 lanes) and C = 96 (P = 1)
 @pytest.mark.parametrize("c,t,with_film,with_cond", [
     (8, 2048, False, False),
     (8, 2048, True, True),
     (32, 1280, True, False),
     (128, 512, True, True),
+    (48, 256, True, True),
+    (96, 136, True, False),
 ])
 def test_plain_version_matches_pallas_kernel(rng, interpret_mode, record_property, c,
                                              t, with_film, with_cond):
     weights = _weights(rng, c)
     h, nc, ic = _inputs(rng, 2, t, c, with_film, with_cond)
-    ref = jax_fused(_j(h), *map(_j, weights), noise_cond=_j(nc),
-                    input_cond=_j(ic), tile_target=64)
+    ref = jax.jit(lambda h, w, nc, ic: jax_fused(h, *w, noise_cond=nc, input_cond=ic,
+                                                 tile_target=64))(h, weights, nc, ic)
     assert ref is not None
     _close(_plain(h, weights, nc, ic), ref, record_property)
 
@@ -113,8 +116,9 @@ def test_plain_version_matches_pallas_kernel_bf16(rng, interpret_mode, record_pr
     def j16(x):
         return None if x is None else _j(x).astype(jnp.bfloat16)
 
-    ref = jax_fused(j16(h), *map(_j, weights), noise_cond=j16(nc),
-                    input_cond=j16(ic), tile_target=64)
+    ref = jax.jit(lambda h, w, nc, ic: jax_fused(h, *w, noise_cond=nc, input_cond=ic,
+                                                 tile_target=64))(
+        j16(h), weights, j16(nc), j16(ic))
     assert ref is not None
     port = conv_block.fused_conv_chain_reference(
         bf16[0], *port_w, noise_cond=bf16[1], input_cond=bf16[2])
@@ -133,10 +137,9 @@ def test_plain_version_matches_pallas_rows_entry(rng, interpret_mode, record_pro
     weights = _weights(rng, c)
     h, nc, ic = _inputs(rng, 2, t, c, True, True)
     b = h.shape[0]
-    v, cond_out = jax_fused_rows(
-        _j(h).reshape(b, t // p, p * c), p, c, *map(_j, weights),
-        noise_cond=_j(nc), input_cond_rows=_j(ic).reshape(b, t // p, p * c),
-        tile_target=64)
+    v, cond_out = jax.jit(lambda h, w, nc, ic: jax_fused_rows(
+        h, p, c, *w, noise_cond=nc, input_cond_rows=ic, tile_target=64))(
+        h.reshape(b, t // p, p * c), weights, nc, ic.reshape(b, t // p, p * c))
     _close(_plain(h, weights, nc, ic), (np.asarray(v).reshape(b, t, c),
                                         np.asarray(cond_out).reshape(b, t, c)),
            record_property)
@@ -175,20 +178,101 @@ def test_wrapper_takes_plain_version_only_on_cpu(rng):
                                     *(_t(w).to("meta") for w in weights))
 
 
-def test_wrapper_checks_what_the_kernel_takes(rng):
+@pytest.mark.parametrize("c", (16, 32, 40, 48, 64, 96, 128, 192, 256, 384, 512, 768))
+def test_wrapper_checks_what_the_kernel_takes(rng, c):
     """The checks a CUDA call passes before launching, run on CPU tensors:
-    slopes in float32 whatever h's dtype, the rest in h's dtype, C = 32..512."""
-    weights = [_t(w) for w in _weights(rng, 32)]
-    h = torch.zeros(1, 9, 32, dtype=torch.bfloat16)
-    bf16 = [w if i % 3 == 2 else w.to(torch.bfloat16) for i, w in enumerate(weights)]
-    conv_block._check(h, tuple(bf16), None, None)
-    with pytest.raises(TypeError, match="a1"):
-        conv_block._check(h, tuple(w.to(torch.bfloat16) for w in weights), None, None)
-    with pytest.raises(TypeError, match="w5"):
-        conv_block._check(h, tuple(weights), None, None)
-    with pytest.raises(ValueError, match="C=16"):
-        conv_block._check(torch.zeros(1, 9, 16), tuple(_t(w) for w in _weights(rng, 16)),
-                          None, None)
+    slopes in float32 whatever h's dtype, the rest in h's dtype, h and the
+    weights 16-byte aligned, and C one of the ten widths of the UNIVERSE++
+    16 and 24 kHz presets, in both dtypes."""
+    weights = [torch.from_numpy(w) for w in _weights(rng, c)]
+    bf16 = tuple(w if i % 3 == 2 else w.to(torch.bfloat16) for i, w in enumerate(weights))
+    for dtype, ws in ((torch.float32, tuple(weights)), (torch.bfloat16, bf16)):
+        h = torch.zeros(1, 9, c, dtype=dtype)
+        if c not in conv_block.WIDTHS:
+            with pytest.raises(ValueError, match=f"C={c}"):
+                conv_block._check(h, ws, None, None)
+            continue
+        conv_block._check(h, ws, None, None)
+        conv_block._check(h, ws, torch.zeros(1, 2 * c, dtype=dtype), torch.zeros_like(h))
+        with pytest.raises(ValueError, match="h must be 16-byte aligned"):
+            conv_block._check(torch.zeros(9 * c + 1, dtype=dtype)[1:].view(1, 9, c), ws,
+                              None, None)
+    if c == 32:
+        with pytest.raises(TypeError, match="a1"):
+            conv_block._check(h, tuple(w.to(torch.bfloat16) for w in weights), None, None)
+        with pytest.raises(TypeError, match="w5"):
+            conv_block._check(h, tuple(weights), None, None)
+
+
+def test_each_dtype_builds_its_own_kernel_and_nothing_falls_back(monkeypatch, tmp_path):
+    """bf16 asks for the tensor-core source and f32 for the CUDA-core one; a
+    build that cannot run raises with the missing compiler's name, and the
+    other route is not tried."""
+    from open_universe_tpu_torch.ops.kernels import build
+
+    asked = []
+    real_build = build.build
+    monkeypatch.setattr(build, "_LIBS", {})
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(build, "build", lambda *names: asked.append(names) or real_build(*names))
+    for dtype, source in ((torch.bfloat16, "conv_block_tc"), (torch.float32, "conv_block")):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            conv_block._kernel_fn(dtype)
+        assert asked.pop() == (source,) and not asked
+
+
+def test_build_runs_one_compiler_per_source(monkeypatch, tmp_path):
+    """``build`` starts a compiler for each source without a library; a
+    failing one raises with its name and log, the others' libraries stay."""
+    from open_universe_tpu_torch.ops.kernels import build
+
+    fake = tmp_path / "nvcc"
+    fake.write_text('#!/bin/sh\nfor a; do out=$prev; prev=$a; done\n'
+                    'case "$prev" in *conv_block_tc.cu) echo "error in tc"; exit 3;; esac\n'
+                    'for a; do [ "$o" = 1 ] && touch "$a"; [ "$a" = -o ] && o=1 || o=0; done\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "libs")
+    monkeypatch.setattr(build, "nvcc", lambda: str(fake))
+    started = []
+    real_popen = build.subprocess.Popen
+    monkeypatch.setattr(build.subprocess, "Popen",
+                        lambda cmd, **kw: started.append(cmd[-1]) or real_popen(cmd, **kw))
+    with pytest.raises(RuntimeError, match="conv_block_tc: nvcc exit 3\nerror in tc"):
+        build.build("conv_block", "conv_block_tc")
+    assert [p.rsplit("/", 1)[-1] for p in started] == ["conv_block.cu", "conv_block_tc.cu"]
+    assert build.library_path("conv_block").exists()
+    assert not build.library_path("conv_block_tc").exists()
+    assert build.build("conv_block") == [build.library_path("conv_block")]
+    assert len(started) == 2  # an existing library is not built again
+
+
+def test_tensor_core_weights_are_mma_fragments():
+    """The bf16 kernel's weight copy: lane 4g + q of the 16-byte fragment of
+    (tap, 16-row block kb, 16-column block nb) holds mma.m16n8k16's B values
+    (k = 2q + e and 2q + 8 + e, n = g) of the n8 tiles 2nb and 2nb + 1; it is
+    made once per weight tensor and anew when the tensor is written."""
+    w = torch.randn(3, 48, 96).to(torch.bfloat16)
+    frag = conv_block.mma_weights_layout(w)
+    assert frag.shape == (3, 3, 6, 32, 8) and frag.is_contiguous()
+    lane = torch.arange(32)
+    g, q = lane // 4, lane % 4
+    for kb, nb in ((0, 0), (2, 5), (1, 3)):
+        for pos in range(8):
+            h8, kh, e = pos // 4, (pos // 2) % 2, pos % 2
+            want = w[:, 16 * kb + 8 * kh + 2 * q + e, 16 * nb + 8 * h8 + g]
+            assert torch.equal(frag[:, kb, nb, :, pos], want)
+    cached = conv_block.mma_weights(w)
+    assert conv_block.mma_weights(w) is cached
+    assert conv_block.mma_weights(w.clone()) is not cached
+    with torch.no_grad():
+        w.mul_(2)
+    again = conv_block.mma_weights(w)
+    assert again is not cached and torch.equal(again, conv_block.mma_weights_layout(w))
+    with torch.inference_mode():
+        frozen = w.clone()
+        assert torch.equal(conv_block.mma_weights(frozen), again)
 
 
 def test_convblock_kernel_weights_follow_the_parameters():

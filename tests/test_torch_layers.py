@@ -326,3 +326,37 @@ def test_from_jax_params_matches_torch_export():
     assert sorted(state) == sorted(export)
     for k, v in export.items():
         np.testing.assert_array_equal(state[k].numpy(), v, err_msg=k)
+
+
+def test_universepp_24k_preset_matches_config_and_jax_tree(monkeypatch):
+    """``universepp(24000)`` has the state_dict (keys and shapes) of the
+    registry's build of config/model/universepp_24k.yaml, and takes the JAX
+    24 kHz preset's param tree (its shapes, from ``jax.eval_shape``)
+    strictly.  The structure is what is held here, so the preset's seeded
+    draw of its ~107M weights is skipped."""
+    import pathlib
+
+    import yaml
+
+    from open_universe_tpu_torch.configs.registry import instantiate
+    from open_universe_tpu_torch.models import presets
+
+    node = yaml.safe_load((pathlib.Path(__file__).parents[1] / "config" / "model"
+                           / "universepp_24k.yaml").read_text())
+    for k, v in node["condition_model"].items():  # ${model.score_model.<k>}
+        if isinstance(v, str) and v.startswith("${model.score_model."):
+            node["condition_model"][k] = node["score_model"][v[20:-1]]
+    with torch.device("meta"):
+        want = {k: tuple(v.shape) for k, v in instantiate(node).state_dict().items()}
+    monkeypatch.setattr(presets, "init_weights", lambda model, seed: model)
+    pm = presets.universepp(24000, device="cpu")
+    assert {k: tuple(v.shape) for k, v in pm.state_dict().items()} == want
+    jm = jax_universepp(24000)
+    params = {name: jax.tree_util.tree_map(
+        lambda s: np.zeros(s.shape, np.float32),
+        jax.eval_shape(getattr(jm, name).init, jax.random.key(0)))
+        for name in ("score_model", "condition_model")}
+    assert from_jax_params(pm, params) == []
+    widths = sorted({m.conv1.out_channels for m in pm.modules()
+                     if isinstance(m, pblocks.ConvBlock)})
+    assert widths == [48, 96, 192, 384, 768] and pm.tot_ds == 240

@@ -49,8 +49,9 @@ def _chain_weights(rng, c):
     return (w(5), b(), a(), w(3), b(), a(), w(3), b(), a())
 
 
-# P = 4 and P = 1; 64-row tiles with a partial tail tile
-@pytest.mark.parametrize("c,t", [(32, 480), (128, 96)])
+# P = 4, 2 (the 24 kHz preset's C = 48, 96 lanes) and 1; 64-row tiles with
+# a partial tail tile
+@pytest.mark.parametrize("c,t", [(32, 480), (128, 96), (48, 200)])
 def test_rows_plain_version_matches_pallas_rows_entry(rng, record_property, c, t):
     p = max(1, 128 // c)
     weights = _chain_weights(rng, c)
@@ -97,7 +98,8 @@ def test_rows_wrapper_checks_and_counts(rng):
 @pytest.mark.parametrize("b,c,t,entry", [
     (2, 32, 40, "fused_conv_chain_rows"), (64, 64, 10, "fused_conv_chain_rows"),
     (65, 32, 40, "fused_conv_chain"), (2, 128, 40, "fused_conv_chain"),
-    (2, 32, 41, "fused_conv_chain"),
+    (2, 32, 41, "fused_conv_chain"), (2, 48, 40, "fused_conv_chain_rows"),
+    (2, 48, 41, "fused_conv_chain"), (2, 96, 40, "fused_conv_chain"),
 ])
 def test_convblock_takes_rows_entry_at_small_batch(rng, monkeypatch, b, c, t, entry):
     """The rows entry runs on a view of (B, T, C) and gives the unfused

@@ -7,11 +7,11 @@ Phases, each of which raises (exit code != 0) on failure:
 1. Build the CUDA kernels from ``open_universe_tpu_torch/csrc`` (one nvcc per
    source, all at once), log each kernel instantiation's registers, shared
    memory and spills as ptxas reports them, and print the card's name and
-   power limit.  TF32 is off for convs and matmuls.
+   power limit.  TF32 is off for the library's convs and matmuls.
 2. Hold the fused ConvBlock kernel against its plain PyTorch version on the
    card at all ten widths of the UNIVERSE++ 16 and 24 kHz presets
-   (C = 32..768) on both routes (bf16: tensor cores, ``conv_block_tc.cu``;
-   f32: CUDA cores, ``conv_block.cu``): at the length the main path gives
+   (C = 32..768) on both routes of ``conv_block_tc.cu`` (bf16 on the tensor
+   cores; f32 as 3xTF32 on the tensor cores): at the length the main path gives
    the width, T = 1, T = 5 (below a tile) and T = 1004 (a partial last tile
    on every route), FiLM and cond on and off.  One line per (C, dtype).
 2b. The same for the kernel's rows entry (``fused_conv_chain_rows``) on
@@ -37,10 +37,13 @@ Phases, each of which raises (exit code != 0) on failure:
    at each of its shapes at batch 128.
 4. Time ``enhance`` in bench.py's setting (bf16 networks, batch 128 x 2 s,
    8 steps, every block through the unpacked entry) with the kernel and with
-   the unfused chain; then time the kernel (and its f32 route), its plain
-   version and the unfused chain alone at each (C, T, FiLM, cond) that
-   phase 3 launched, weight each by its launches, and give each shape's
-   TFLOP/s and bound share.
+   the unfused chain, and the same ``enhance`` with f32 networks (the
+   server's default) both ways; then time the kernel (and its f32 route),
+   its plain version and the unfused chain alone at each (C, T, FiLM, cond)
+   that phase 3 launched, weight each by its launches, and give each
+   shape's TFLOP/s and bound share (f32 at the 3xTF32 rate, 495 / 3 TFLOP/s;
+   the CUDA cores' 67 TFLOP/s bound of the earlier f32 kernel is printed
+   beside it once).
 4b. Time bf16 ``enhance`` on 2 s clips at batch 1 and 16; then the rows
    entry, its plain version and the unfused chain alone at each rows shape
    of phase 3 at batch 16, weighted by launches.
@@ -87,17 +90,19 @@ BUCKET_S = 1.0  # the server's length buckets
 N_STEPS = 8
 TIMING_BATCH = 128
 SERVE_BATCH = 16
-SOURCES = ("conv_block", "conv_block_tc")
+SOURCES = ("conv_block_tc",)
 # ConvBlock width -> length on a 2 s clip: 16 kHz (universepp(16000)) and
 # 24 kHz (config/model/universepp_24k.yaml)
 WIDTH_LENGTHS = {32: 32160, 64: 16080, 128: 4020, 256: 1005, 512: 201}
 WIDTH_LENGTHS_24K = {48: 48240, 96: 24120, 192: 8040, 384: 1608, 768: 201}
 PARTIAL_T = 1004  # leaves a partial last time tile on every route and width
-F32, BF16 = "f32_cuda_cores", "bf16_tensor_cores"  # conv_block.ROUTES' names
+F32, BF16 = "f32_tensor_cores_3xtf32", "bf16_tensor_cores"  # conv_block.ROUTES' names
 # ConvBlocks per enhance with 8 steps: 10 per score pass, 14 in the conditioner
 PATH_LAUNCHES = 10 * N_STEPS + 14
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# f32 runs as three TF32 products per product: a third of the 495 TFLOP/s
+PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
+CUDA_CORE_F32_FLOPS = 67e12  # the bound of the earlier CUDA-core f32 kernel
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 
 # first matching substring of a device kernel's lower-cased name names its
@@ -170,9 +175,10 @@ def ptxas_summary(text: str) -> list:
         if m:
             raw = m.group(1)
             kernel = re.search(r"\d+(conv_block\w*?_kernel)I", raw)
+            prec = re.search(r"\d(F32|Bf16)E", raw)
             width = re.search(r"Li(\d+)E", raw)
-            name = (f"{kernel.group(1)}<C={width.group(1)}>" if kernel and width
-                    else raw)
+            name = (f"{kernel.group(1)}<{prec.group(1) if prec else ''}, C={width.group(1)}>"
+                    if kernel and width else raw)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
@@ -286,7 +292,7 @@ def phase_kernel_vs_plain(rows: bool = False):
                         raise AssertionError(f"{tag} kernel disagrees with its plain "
                                              f"version at C={c} T={t} {dtype} ({name})")
                     err_c, rel_c = max(err_c, err), max(rel_c, err / scale)
-            log(f"[{tag}] C={c:3d} {route:17s} T={[t for t, *_ in cases]}: worst "
+            log(f"[{tag}] C={c:3d} {route:23s} T={[t for t, *_ in cases]}: worst "
                 f"max|d| {err_c:.3e} = {rel_c:.2e} max|ref| (bound {TOL[dtype]:g}) ok")
             worst[route] = max(worst.get(route, 0.0), err_c)
     return worst
@@ -424,8 +430,9 @@ def phase_24k():
         time_shapes(by_shape(counts), TIMING_BATCH, tag="24k")
 
 
-def timed_enhance(model, mix, noise, fused: bool):
-    """Median wall time of bf16 enhance over 5 runs after 2 warm-ups."""
+def timed_enhance(model, mix, noise, fused: bool, dtype=torch.bfloat16):
+    """Median wall time of enhance with dtype networks (None: float32) over
+    5 runs after 2 warm-ups."""
     from open_universe_tpu_torch.ops import kernels
 
     kernels.enable(fused)
@@ -434,8 +441,7 @@ def timed_enhance(model, mix, noise, fused: bool):
         for i in range(7):  # 2 warm-up runs, then 5 timed
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            model.enhance(mix, n_steps=N_STEPS, compute_dtype=torch.bfloat16,
-                          noise=noise)
+            model.enhance(mix, n_steps=N_STEPS, compute_dtype=dtype, noise=noise)
             torch.cuda.synchronize()
             if i >= 2:
                 times.append(time.perf_counter() - t0)
@@ -455,9 +461,9 @@ def chain_bound(batch, t, c, dtype, tensors):
 
 def time_shapes(shape_counts, batch, rows=False, tag=None):
     """The kernel entry, its plain version and the unfused chain alone at
-    each (C, T, FiLM, cond) of shape_counts at this batch, in bf16 (tensor
-    cores) and in f32 (CUDA cores); one dict per shape with its launches,
-    bounds, TFLOP/s and bound share (bf16 keys bare, f32 keys f32_*)."""
+    each (C, T, FiLM, cond) of shape_counts at this batch, in bf16 and in f32
+    (3xTF32); one dict per shape with its launches, bounds, TFLOP/s and
+    bound share (bf16 keys bare, f32 keys f32_*)."""
     from open_universe_tpu_torch.nn.blocks import ConvBlock
     from open_universe_tpu_torch.nn.layers import init_weights
     from open_universe_tpu_torch.ops import kernels
@@ -526,10 +532,13 @@ def phase_timing(model, shape_counts):
     noise = noise_draws(model, batch, t, seed=4)
     audio_s = batch * CLIP_S
     rates = {}
-    for fused in (True, False, False, True):
-        s = timed_enhance(model, mix, noise, fused)
-        rates.setdefault(fused, []).append(audio_s / s)
-        log(f"[timing] enhance batch {batch} x {CLIP_S} s bf16, "
+    for dtype, fused in ((torch.bfloat16, True), (torch.bfloat16, False),
+                         (torch.bfloat16, False), (torch.bfloat16, True),
+                         (None, True), (None, False)):
+        s = timed_enhance(model, mix, noise, fused, dtype)
+        key = ("" if dtype else "f32_") + ("kernel" if fused else "unfused")
+        rates.setdefault(key, []).append(audio_s / s)
+        log(f"[timing] enhance batch {batch} x {CLIP_S} s {'bf16' if dtype else 'f32'}, "
             f"{'kernel' if fused else 'unfused'}: median {s:.4f} s -> "
             f"{audio_s / s:.2f} audio-s/s")
 
@@ -859,9 +868,14 @@ def main() -> int:
                 f"{key}library_ms": None,
                 f"{key}unfused_ms": total(f"{key}unfused_ms", shapes)}
 
+    def cuda_core_bound(shapes):
+        """The f32 bound at the CUDA cores' rate (the earlier f32 kernel's)."""
+        return sum(max(s["f32_bytes_ms"], s["f32_ops_ms"] * PEAK_FLOPS[torch.float32]
+                       / CUDA_CORE_F32_FLOPS) * s["launches"] for s in shapes)
+
     def routes(entry):
         return {BF16: "open_universe_tpu_torch/csrc/conv_block_tc.cu",
-                F32: "open_universe_tpu_torch/csrc/conv_block.cu",
+                F32: "open_universe_tpu_torch/csrc/conv_block_tc.cu",
                 "launches": by_route({k: n for k, n in main_counts.items()
                                       if k[0] == entry})}
 
@@ -876,19 +890,21 @@ def main() -> int:
         "max_abs_err": max(worst.values()),
         # per enhance of batch 128 x 2 s in bf16 (all 94 blocks, tensor-core
         # route): each (C, T, FiLM, cond) timed alone, times its launches in
-        # phase 3; the f32_* keys are the CUDA-core route at the same shapes
+        # phase 3; the f32_* keys are the 3xTF32 route at the same shapes
         **sums(shapes), **sums(shapes, "f32_"),
+        "f32_cuda_core_bound_ms": cuda_core_bound(shapes),
         "routes": routes("fused_conv_chain"),
         "max_abs_err_by_route": worst,
         "widths": list(WIDTH_LENGTHS) + list(WIDTH_LENGTHS_24K),
-        "audio_s_per_s": {"kernel": rates[True], "unfused": rates[False]},
+        "audio_s_per_s": rates,
         "main_path_kernel_vs_unfused": path_diff,
         "build_s": build_s,
         "registers": {k["kernel"]: k["registers"] for ks in ptxas.values() for k in ks},
         "spills": [k["kernel"] for ks in ptxas.values() for k in ks if k["spills"]],
         # universepp_24k.yaml: enhance at f32 (phase 3c), shapes at batch 128
         # (each shape's numbers are on the [24k] lines above)
-        "universepp_24k": {**hz24, **sums(shapes_24k), **sums(shapes_24k, "f32_")},
+        "universepp_24k": {**hz24, **sums(shapes_24k), **sums(shapes_24k, "f32_"),
+                           "f32_cuda_core_bound_ms": cuda_core_bound(shapes_24k)},
         "profile": profiled,
     }, {
         "name": "fused_conv_chain_rows",
@@ -902,6 +918,7 @@ def main() -> int:
         # each (C, T, FiLM, cond) timed alone, times its launches in phase 3;
         # f32_* as above
         **sums(rows_shapes), **sums(rows_shapes, "f32_"),
+        "f32_cuda_core_bound_ms": cuda_core_bound(rows_shapes),
         "routes": routes("fused_conv_chain_rows"),
         "max_abs_err_by_route": worst_rows,
         "launches_per_enhance": entries,
@@ -910,6 +927,11 @@ def main() -> int:
         "profile_batch1": profiled_1,
         "serving": served,
     }]}
+    for tag, sh in (("batch 128, 16 kHz", shapes), ("batch 128, 24 kHz", shapes_24k),
+                    ("rows, batch 16", rows_shapes)):
+        log(f"[bounds] f32 per enhance, {tag}: kernel {total('f32_ms', sh):.2f} ms, "
+            f"bound {sums(sh, 'f32_')['f32_bound_ms']:.2f} ms at 3xTF32 (495 / 3 TFLOP/s), "
+            f"{cuda_core_bound(sh):.2f} ms at the CUDA cores' 67 TFLOP/s")
     print(card_line(), flush=True)
     print(json.dumps(kernel_line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,12 +10,15 @@ runs in one kernel launch on a CUDA tensor, and as
 ``fused_conv_chain_reference`` on a CPU tensor.  Both take folded weights in
 the JAX layout (K, Cin, Cout) and h's dtype, the three PReLU slopes in
 float32 (as the JAX kernel takes them), h in (B, T, C), and return
-(v, cond_out).  Two routes, one per dtype, at the widths ``WIDTHS`` (every
-ConvBlock width of the UNIVERSE++ 16 and 24 kHz presets): bfloat16 launches
-``csrc/conv_block_tc.cu`` on the tensor cores, with the weights in
-``mma_weights``'s fragment order (made once per weight tensor); float32
-launches ``csrc/conv_block.cu`` on the CUDA cores.  Neither stands in for
-the other: a kernel that does not build or launch raises.
+(v, cond_out).  One source, ``csrc/conv_block_tc.cu``, runs the chain on the
+tensor cores at the widths ``WIDTHS`` (every ConvBlock width of the
+UNIVERSE++ 16 and 24 kHz presets), in two routes, one per dtype: bfloat16 on
+``mma.sync.m16n8k16``, float32 as 3xTF32 on ``mma.sync.m16n8k8`` (each
+product split into TF32 halves, a_hi b_hi + a_hi b_lo + a_lo b_hi summed in
+float32, which holds float32's 1e-4 gate where one TF32 pass does not).
+The weights go in ``mma_weights``' fragment order for the dtype (made once
+per weight tensor; float32 split into hi and lo there).  Neither route
+stands in for the other: a kernel that does not build or launch raises.
 
 ``fused_conv_chain_rows`` is the same chain on the JAX package's lane-packed
 rows (B, T/P, P*C), P = max(1, 128 // C).  Row r, lane p*C + c holds sample
@@ -42,7 +45,7 @@ from . import build
 SQRT_HALF = 1.0 / math.sqrt(2.0)
 WIDTHS = (32, 48, 64, 96, 128, 192, 256, 384, 512, 768)
 # dtype -> (route name, source in csrc/, C function)
-ROUTES = {torch.float32: ("f32_cuda_cores", "conv_block", "ou_conv_block"),
+ROUTES = {torch.float32: ("f32_tensor_cores_3xtf32", "conv_block_tc", "ou_conv_block_tc_f32"),
           torch.bfloat16: ("bf16_tensor_cores", "conv_block_tc", "ou_conv_block_tc")}
 
 launches: collections.Counter = collections.Counter()
@@ -70,16 +73,50 @@ def mma_weights_layout(w: torch.Tensor) -> torch.Tensor:
     return x.reshape(k, cin // 16, cout // 16, 32, 8)
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 x rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds: the float32 bit pattern
+    with its 13 low mantissa bits zero."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) with hi = tf32(x) and lo = tf32(x - hi): hi + lo keeps ~22
+    significant bits of x, the 3xTF32 kernel's split."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def mma_weights_tf32_layout(w: torch.Tensor) -> torch.Tensor:
+    """float32 (K, Cin, Cout) -> the 3xTF32 kernel's fragment order
+    (K, Cin/8, Cout/8, 32, 4): for tap k, 8-row block kb of Cin and n8 tile
+    nb of Cout, lane 4g + q holds hi and then lo of w[k, 8kb + q, 8nb + g]
+    and w[k, 8kb + q + 4, 8nb + g] (mma.m16n8k8's TF32 B fragment b0, b1) at
+    positions 2 part + kh: one 16-byte load per lane."""
+    k, cin, cout = w.shape
+    x = torch.stack(tf32_split(w), -1)                         # k cin cout part
+    x = x.reshape(k, cin // 8, 2, 4, cout // 8, 8, 2)          # k kb kh q nb g part
+    x = x.permute(0, 1, 4, 5, 3, 6, 2).contiguous()            # k kb nb g q part kh
+    return x.reshape(k, cin // 8, cout // 8, 32, 4)
+
+
+_MMA_LAYOUTS = {torch.bfloat16: mma_weights_layout, torch.float32: mma_weights_tf32_layout}
+
+
 def mma_weights(w: torch.Tensor) -> torch.Tensor:
-    """``mma_weights_layout(w)``, made once per weight tensor (kept on the
-    tensor) and made anew when the tensor is written (its version moves).
-    A tensor made under ``torch.inference_mode`` has no version to follow
-    and gets a fresh copy on every call."""
+    """The fragment-ordered weights of w's dtype (``mma_weights_layout`` for
+    bfloat16, ``mma_weights_tf32_layout`` for float32), made once per
+    weight tensor (kept on the tensor) and made anew when the tensor is
+    written (its version moves).  A tensor made under
+    ``torch.inference_mode`` has no version to follow and gets a fresh copy
+    on every call."""
+    layout = _MMA_LAYOUTS[w.dtype]
     if w.is_inference():
-        return mma_weights_layout(w)
+        return layout(w)
     cached = getattr(w, "_mma_weights", None)
     if cached is None or cached[0] != w._version:
-        cached = w._mma_weights = (w._version, mma_weights_layout(w))
+        cached = w._mma_weights = (w._version, layout(w))
     return cached[1]
 
 
@@ -134,7 +171,7 @@ def fused_conv_chain(
     contiguous and on h's device, and all but the slopes have h's dtype
     (float32 or bfloat16).  Returns (v, cond_out).
     A CPU tensor runs the plain version; a CUDA tensor launches its dtype's
-    kernel (bf16: tensor cores, f32: CUDA cores) or raises.
+    kernel (bf16 or 3xTF32 on the tensor cores) or raises.
     """
     weights = (w5, b5, a1, w3a, b3a, a2, w3b, b3b, a3)
     if h.device.type == "cpu":
@@ -151,9 +188,7 @@ def _launch(entry, h, weights, noise_cond, input_cond):
     _check(h, weights, noise_cond, input_cond)
     b, t, c = h.shape
     route = ROUTES[h.dtype][0]
-    if h.dtype == torch.bfloat16:
-        weights = tuple(mma_weights(x) if i in (0, 3, 6) else x
-                        for i, x in enumerate(weights))
+    weights = tuple(mma_weights(x) if i in (0, 3, 6) else x for i, x in enumerate(weights))
     v = torch.empty_like(h)
     cond_out = torch.empty_like(h)
     with torch.cuda.device(h.device):

@@ -5,7 +5,8 @@ the ConvBlock's dispatch.  Bounds: 2e-5 at float32; 3e-2 max|ref| at bf16,
 where the two sides round at the same points but may sum in another order.
 
 The CUDA kernel itself builds and runs only on the card; ``chip_smoke.py``
-holds it against the plain version there.
+holds it against the plain version there.  Here the f32 route's numerics
+(3xTF32) are held by an emulation of its split products.
 """
 import numpy as np
 import pytest
@@ -205,9 +206,9 @@ def test_wrapper_checks_what_the_kernel_takes(rng, c):
 
 
 def test_each_dtype_builds_its_own_kernel_and_nothing_falls_back(monkeypatch, tmp_path):
-    """bf16 asks for the tensor-core source and f32 for the CUDA-core one; a
-    build that cannot run raises with the missing compiler's name, and the
-    other route is not tried."""
+    """Both dtypes ask for the one tensor-core source, each for its own C
+    entry (bf16 and 3xTF32); a build that cannot run raises with the missing
+    compiler's name, and no other source is tried."""
     from open_universe_tpu_torch.ops.kernels import build
 
     asked = []
@@ -217,10 +218,14 @@ def test_each_dtype_builds_its_own_kernel_and_nothing_falls_back(monkeypatch, tm
     monkeypatch.setattr(build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(build, "build", lambda *names: asked.append(names) or real_build(*names))
-    for dtype, source in ((torch.bfloat16, "conv_block_tc"), (torch.float32, "conv_block")):
+    assert {route[1] for route in conv_block.ROUTES.values()} == {"conv_block_tc"}
+    assert len({route[2] for route in conv_block.ROUTES.values()}) == 2
+    assert conv_block.ROUTES[torch.float32][0] == "f32_tensor_cores_3xtf32"
+    for dtype in (torch.bfloat16, torch.float32):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             conv_block._kernel_fn(dtype)
-        assert asked.pop() == (source,) and not asked
+        assert asked.pop() == ("conv_block_tc",) and not asked
+    assert sorted(p.name for p in build.CSRC_DIR.glob("*.cu")) == ["conv_block_tc.cu"]
 
 
 def test_build_runs_one_compiler_per_source(monkeypatch, tmp_path):
@@ -228,23 +233,28 @@ def test_build_runs_one_compiler_per_source(monkeypatch, tmp_path):
     failing one raises with its name and log, the others' libraries stay."""
     from open_universe_tpu_torch.ops.kernels import build
 
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in ("first", "second"):
+        (csrc / f"{name}.cu").write_text(f"// {name}\n")
     fake = tmp_path / "nvcc"
     fake.write_text('#!/bin/sh\nfor a; do out=$prev; prev=$a; done\n'
-                    'case "$prev" in *conv_block_tc.cu) echo "error in tc"; exit 3;; esac\n'
+                    'case "$prev" in *second.cu) echo "error in second"; exit 3;; esac\n'
                     'for a; do [ "$o" = 1 ] && touch "$a"; [ "$a" = -o ] && o=1 || o=0; done\n')
     fake.chmod(0o755)
+    monkeypatch.setattr(build, "CSRC_DIR", csrc)
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "libs")
     monkeypatch.setattr(build, "nvcc", lambda: str(fake))
     started = []
     real_popen = build.subprocess.Popen
     monkeypatch.setattr(build.subprocess, "Popen",
                         lambda cmd, **kw: started.append(cmd[-1]) or real_popen(cmd, **kw))
-    with pytest.raises(RuntimeError, match="conv_block_tc: nvcc exit 3\nerror in tc"):
-        build.build("conv_block", "conv_block_tc")
-    assert [p.rsplit("/", 1)[-1] for p in started] == ["conv_block.cu", "conv_block_tc.cu"]
-    assert build.library_path("conv_block").exists()
-    assert not build.library_path("conv_block_tc").exists()
-    assert build.build("conv_block") == [build.library_path("conv_block")]
+    with pytest.raises(RuntimeError, match="second: nvcc exit 3\nerror in second"):
+        build.build("first", "second")
+    assert [p.rsplit("/", 1)[-1] for p in started] == ["first.cu", "second.cu"]
+    assert build.library_path("first").exists()
+    assert not build.library_path("second").exists()
+    assert build.build("first") == [build.library_path("first")]
     assert len(started) == 2  # an existing library is not built again
 
 
@@ -273,6 +283,91 @@ def test_tensor_core_weights_are_mma_fragments():
     with torch.inference_mode():
         frozen = w.clone()
         assert torch.equal(conv_block.mma_weights(frozen), again)
+
+
+def test_tf32_weights_are_split_mma_fragments():
+    """The f32 kernel's weight copy: each value split into TF32 hi (13 low
+    mantissa bits zero, rounded to nearest with ties away from zero, as
+    cvt.rna.tf32.f32 rounds) and lo = tf32(w - hi), |hi + lo - w| <= 2^-21
+    |w|; lane 4g + q of the 16-byte fragment of (tap, 8-row block kb, n8
+    tile nb) holds hi, hi, lo, lo of mma.m16n8k8's B values (k = q, q + 4;
+    n = g); made once per weight tensor and anew when it is written."""
+    g = torch.Generator().manual_seed(0)
+    w = torch.randn(3, 16, 24, generator=g) * torch.logspace(-4, 4, 24)
+    hi, lo = conv_block.tf32_split(w)
+    assert torch.equal(hi.view(torch.int32) & 0x1FFF, torch.zeros_like(w, dtype=torch.int32))
+    assert torch.equal(lo.view(torch.int32) & 0x1FFF, torch.zeros_like(w, dtype=torch.int32))
+    assert ((hi + lo - w).abs() <= 2.0 ** -21 * w.abs()).all()
+    assert torch.equal(hi.view(torch.int32), (w.view(torch.int32) + 0x1000) & -0x2000)
+    # nearest: within half a TF32 ulp; ties go away from zero
+    ulp = torch.exp2(torch.floor(torch.log2(w.double().abs())) - 10)
+    assert ((hi.double() - w.double()).abs() <= ulp / 2).all()
+    ties = torch.tensor([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 2 ** -11 - 2 ** -23, 3 * 2 ** -12])
+    assert conv_block.tf32_round(ties).tolist() == [1 + 2 ** -10, -(1 + 2 ** -10), 1.0,
+                                                   3 * 2 ** -12]
+
+    frag = conv_block.mma_weights_tf32_layout(w)
+    assert frag.shape == (3, 2, 3, 32, 4) and frag.is_contiguous()
+    lane = torch.arange(32)
+    gg, q = lane // 4, lane % 4
+    for kb, nb in ((0, 0), (1, 2), (0, 1)):
+        for pos in range(4):
+            part, kh = divmod(pos, 2)
+            want = (hi, lo)[part][:, 8 * kb + 4 * kh + q, 8 * nb + gg]
+            assert torch.equal(frag[:, kb, nb, :, pos], want)
+    cached = conv_block.mma_weights(w)
+    assert torch.equal(cached, frag) and conv_block.mma_weights(w) is cached
+    with torch.no_grad():
+        w.mul_(2)
+    again = conv_block.mma_weights(w)
+    assert again is not cached and torch.equal(again, 2 * frag)
+
+
+def _tf32x3_chain(h, w5, b5, a1, w3a, b3a, a2, w3b, b3b, a3, noise_cond, input_cond):
+    """The f32 chain with every conv product split as the 3xTF32 kernel
+    splits it: weights into TF32 hi + lo (``tf32_split``), activations into
+    hi = tf32(x) and lo = x - hi cut to TF32 as the tensor core reads it
+    (its 13 low bits dropped), and a_lo b_hi + a_hi b_lo + a_hi b_hi summed
+    in float32 (each TF32 product is exact in float32).  A test of the
+    design's numerics, on no path."""
+    import torch.nn.functional as F
+
+    def conv(x, w, bias):
+        xh = conv_block.tf32_round(x)
+        xl = ((x - xh).view(torch.int32) & -0x2000).view(torch.float32)
+        wh, wl = conv_block.tf32_split(w)
+
+        def one(a, b):
+            return F.conv1d(a.transpose(1, 2), b.permute(2, 1, 0),
+                            padding=b.shape[0] // 2).transpose(1, 2)
+
+        return one(xl, wh) + one(xh, wl) + one(xh, wh) + bias
+
+    def prelu(x, a):
+        return torch.where(x >= 0, x, a * x)
+
+    n = h.shape[-1]
+    cond_out = conv(prelu(h, a1), w5, b5)
+    c = (cond_out + input_cond) * conv_block.SQRT_HALF
+    c = noise_cond[:, None, :n] * c + noise_cond[:, None, n:]
+    c = prelu(conv(prelu(c, a2), w3a, b3a), a3)
+    return (h + conv(c, w3b, b3b)) * conv_block.SQRT_HALF, cond_out
+
+
+@pytest.mark.parametrize("c", [768, 32])
+def test_3xtf32_split_holds_the_f32_gate(rng, record_property, c):
+    """The 3xTF32 design on the CPU, before the card: the chain with every
+    product split as the kernel splits it stays within the card's f32 gate
+    (1e-4 max|ref|) of the plain version, at the widest and narrowest
+    width, FiLM and cond on."""
+    weights = _weights(rng, c)
+    h, nc, ic = _inputs(rng, 1, 40, c, True, True)
+    ref = _plain(h, weights, nc, ic)
+    got = _tf32x3_chain(_t(h), *map(_t, weights), _t(nc), _t(ic))
+    for name, a, r in zip(("v", "cond_out"), got, ref):
+        diff, scale = (a - r).abs().max().item(), r.abs().max().item()
+        record_property(f"max_abs_diff_{name}", diff)
+        assert diff <= 1e-4 * scale, (name, diff, scale)
 
 
 def test_convblock_kernel_weights_follow_the_parameters():

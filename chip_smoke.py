@@ -59,9 +59,25 @@ Phases, each of which raises (exit code != 0) on failure:
    concurrent requests (13 clips, one stereo) all answer 200 with their
    shape; ``/stats`` counts every clip; the rows entry launched.  Then 5
    lone 2 s requests give the serving latency.
+7. The enhance CLI (``bin/enhance.py``'s ``main`` in this process, default
+   device, ``--batch-size 8``, 8 steps, f32) on phase 6's checkpoint, whose
+   snake signal-decoupling layer is loaded, and a tree of 16 kHz mono WAVs
+   of 2, 3.5 and 7 s, a stereo 44.1 kHz FLAC, a 24 kHz WAV in a subfolder
+   and (where libmpg123 and libmp3lame load) an MP3.  Four runs: bucketed
+   (94 launches per batch), ``--use_aux_signal true`` (14 per batch),
+   ``--chunk-seconds 2`` on the 7 s file, and ``--ensemble 4
+   --ensemble_stat median --warm_start 3`` (64 per batch).  Each writes
+   every file with its rate, length, channels and container, finite,
+   through both entries, and each run's lossless files, every bucket and
+   every channel, equal the CLI's batches (or chunks) recomputed by
+   ``enhance`` with the kernels off on a generator seeded as the CLI seeds
+   it, cut and resampled as the CLI writes them (<= 1e-4 + 1/32767, the
+   16-bit rounding).  The CLI's realtime factor,
+   bucketed and chunked, is logged beside the card's name and power limit.
 
 The last two lines are a JSON object with one entry per kernel (per-enhance
-sums; each shape's numbers are on the log lines of phases 3c, 4 and 4b) and
+sums; each shape's numbers are on the log lines of phases 3c, 4 and 4b; the
+CLI's launches per run of phase 7) and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
 and prints no result.
 """
@@ -587,7 +603,8 @@ def write_checkpoint(directory: str, fs: int = FS, config: str = "default.yaml")
     with config/model/<config>'s model node beside it as config.yaml:
     weight norm unfolded, the score model under the EDM ``_edm_model.``
     prefix, raw weights at half the EMA shadow, which holds the seeded
-    weights."""
+    weights; the signal-decoupling layer, which the reference never
+    optimises, equal in both."""
     import yaml
 
     from open_universe_tpu_torch.inference.model_loader import ordered_param_names
@@ -597,7 +614,8 @@ def write_checkpoint(directory: str, fs: int = FS, config: str = "default.yaml")
                  for k, v in universepp(fs, device="cpu", seed=0).state_dict().items()}
     names = ordered_param_names(
         shadow_sd, ["_edm_model", "condition_model", "signal_decoupling_layer"])
-    raw_sd = {k: v * 0.5 if k in names else v for k, v in shadow_sd.items()}
+    raw_sd = {k: v * 0.5 if k in names and not k.startswith("signal_decoupling_layer.")
+              else v for k, v in shadow_sd.items()}
     path = os.path.join(directory, "weights.ckpt")
     torch.save({"state_dict": raw_sd,
                 "ema": {"shadow_params": [shadow_sd[n] for n in names],
@@ -761,6 +779,212 @@ def phase_serving():
                 ema_err=ema_err), entries
 
 
+# phase 7's input tree: (relative path, rate, channels, seconds)
+CLI_FILES = [("a.wav", 16000, 1, 2.0), ("b.wav", 16000, 1, 3.5), ("c.wav", 16000, 1, 7.0),
+             ("d.flac", 44100, 2, 3.0), ("sub/e.wav", 24000, 1, 2.5)]
+CLI_MP3 = ("f.mp3", 16000, 1, 1.5)
+CLI_BATCH = 8
+CLI_SEED = 1028282  # the CLI's default --seed
+CLI_LINE = re.compile(r"enhanced (\d+) files \(([\d.]+)s audio\) in ([\d.]+)s "
+                      r"\(([\d.]+)x realtime\)")
+
+
+def mp3_libraries() -> bool:
+    import ctypes
+
+    try:
+        ctypes.CDLL("libmpg123.so.0")
+        ctypes.CDLL("libmp3lame.so.0")
+    except OSError:
+        return False
+    return True
+
+
+def write_tree(root: str, files) -> None:
+    from open_universe_tpu_torch.data.audio import save_audio
+
+    rng = np.random.default_rng(17)
+    for name, fs, ch, seconds in files:
+        t = int(fs * seconds)
+        x = (0.1 * np.sin(2 * np.pi * 220 * np.arange(t) / fs)
+             + 0.05 * rng.standard_normal((ch, t))).astype(np.float32)
+        path = os.path.join(root, name)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        save_audio(path, x[0] if ch == 1 else x, fs)
+
+
+def run_cli(tag, src, dst, ckpt, *extra):
+    """``bin/enhance.py``'s main in this process on the default device, f32,
+    8 steps; returns its launches (counted from 0), its realtime-factor line
+    and the call's wall seconds (model load included)."""
+    import contextlib
+
+    from open_universe_tpu_torch.bin import enhance as cli
+    from open_universe_tpu_torch.ops.kernels import conv_block
+
+    err = io.StringIO()
+    conv_block.launches.clear()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main([src, dst, "--model", ckpt, "--batch-size", str(CLI_BATCH),
+                       "--n_steps", str(N_STEPS), *extra])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(conv_block.launches)
+    m = CLI_LINE.search(err.getvalue())
+    log(f"[cli {tag}] rc {rc}, {wall:.2f} s with the model load; "
+        f"{m.group(0) if m else 'no realtime line'}; launches {by_entry(counts)}")
+    if rc != 0 or m is None:
+        raise AssertionError(f"cli {tag}: exit {rc}: {err.getvalue()[-2000:]}")
+    return counts, dict(files=int(m.group(1)), audio_s=float(m.group(2)),
+                        enhance_s=float(m.group(3)), realtime=float(m.group(4)),
+                        wall_s=wall)
+
+
+def check_outputs(tag, out_root, files):
+    """Every file written with its rate, length, channels and container, and
+    finite; returns the outputs by name."""
+    from open_universe_tpu_torch.data.audio import load_audio
+
+    outs = {}
+    for name, fs, ch, seconds in files:
+        y, got_fs = load_audio(os.path.join(out_root, name))
+        lossy = name.endswith(".mp3")  # the encoder pads its frames
+        if (got_fs != fs or y.shape[0] != ch or not np.isfinite(y).all()
+                or (y.shape[1] < int(fs * seconds) if lossy else
+                    y.shape[1] != int(fs * seconds))):
+            raise AssertionError(f"cli {tag}: {name} came back as {y.shape} at {got_fs} Hz")
+        outs[name] = y
+    return outs
+
+
+def cli_kwargs(model, *flags):
+    """The ``enhance`` arguments the CLI passes for these flags, from the
+    CLI's own parse (its defaults come from the model's config)."""
+    import argparse
+
+    from open_universe_tpu_torch.inference.signature_to_parser import (
+        parse_with_enhance_args,
+    )
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--model")
+    _, _, kwargs = parse_with_enhance_args(
+        parser, ["--n_steps", str(N_STEPS), *flags], lambda *_, **__: model)
+    return kwargs
+
+
+def unfused_cli(model, src, files, *flags, chunk=None):
+    """What the CLI writes for ``flags``, recomputed with the kernels off:
+    its batches (or, with ``chunk`` seconds, its files in chunks) in its
+    order through ``enhance`` on one generator seeded as the CLI seeds it,
+    each file's channels cut to length and resampled to the file's rate as
+    the CLI writes them.  Returns {name: (channels, T)} of the lossless
+    files."""
+    from pathlib import Path
+
+    from open_universe_tpu_torch.bin import enhance as cli
+    from open_universe_tpu_torch.data.audio import load_audio, resample_audio
+    from open_universe_tpu_torch.inference.chunked import make_chunked_enhancer
+    from open_universe_tpu_torch.ops import kernels
+
+    kwargs = cli_kwargs(model, *flags)
+    audio = {}
+    for name, *_ in files:
+        x, fs = load_audio(os.path.join(src, name))
+        audio[name] = resample_audio(x, fs, FS)
+    g = torch.Generator(device=DEVICE).manual_seed(CLI_SEED)
+    rows = {}
+    kernels.enable(False)
+    try:
+        if chunk is not None:
+            enhancer = make_chunked_enhancer(model, chunk_seconds=chunk,
+                                             max_batch=CLI_BATCH, **kwargs)
+            for name in sorted(audio):
+                for ch, x in enumerate(audio[name]):
+                    rows[name, ch] = enhancer(x, generator=g)
+        else:
+            paths = [Path(src, name) for name in audio]
+            for bucket_len, group in cli._bucket(paths, FS, CLI_BATCH, FS):
+                names = [str(p.relative_to(src)) for p, _ in group]
+                batch = np.zeros((len(group), bucket_len), np.float32)
+                for i, (name, (_, ch)) in enumerate(zip(names, group)):
+                    batch[i, :audio[name].shape[1]] = audio[name][ch]
+                out = model.enhance(torch.from_numpy(batch).to(DEVICE), generator=g,
+                                    **kwargs).float().cpu().numpy()
+                for i, (name, (_, ch)) in enumerate(zip(names, group)):
+                    rows[name, ch] = out[i, :audio[name].shape[1]]
+    finally:
+        kernels.enable(True)
+    return {name: resample_audio(np.stack([rows[name, c] for c in range(ch)]), FS, fs)
+            for name, fs, ch, _ in files if not name.endswith(".mp3")}
+
+
+def against_unfused(tag, outs, expected) -> float:
+    """The CLI's written files (kernels on) against ``unfused_cli``: within
+    1e-4 plus the 16-bit rounding of the written file."""
+    diff = max(float(np.abs(outs[name] - y).max()) for name, y in expected.items())
+    log(f"[cli {tag}] written vs enhance with the kernels off, {sorted(expected)}: "
+        f"max|d| = {diff:.3e} (bound 1e-4 + 1/32767)")
+    if not diff <= 1e-4 + 1.0 / 32767:
+        raise AssertionError(f"cli {tag}: output differs from the unfused enhance by {diff}")
+    return diff
+
+
+def phase_cli():
+    """The enhance CLI on the card (``bin/enhance.py``): bucketed, with
+    ``--use_aux_signal``, chunked, and with an ensemble and a warm start.
+    Each run's written files are held against the same batches recomputed
+    with the kernels off.  Returns its numbers and launches by run."""
+    from pathlib import Path
+
+    from open_universe_tpu_torch.bin import enhance as cli
+    from open_universe_tpu_torch.inference.model_loader import load_model
+
+    files = CLI_FILES + ([CLI_MP3] if mp3_libraries() else [])
+    log(f"[cli] MP3 {'exercised' if len(files) > len(CLI_FILES) else 'not exercised: '
+                     'libmpg123 or libmp3lame does not load'}; inputs {files}")
+    result, launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = write_checkpoint(tmp)
+        src = os.path.join(tmp, "in")
+        write_tree(src, files)
+        model = load_model(ckpt, device=DEVICE)
+        # one batch of 1-3 rows per 1 s bucket: the rows entry at C = 32, 64
+        n_batches = len(cli._bucket([Path(src, name) for name, *_ in files], FS,
+                                    CLI_BATCH, FS))
+
+        def run(tag, per_batch, *flags, inputs=files, path=src, chunk=None):
+            out = os.path.join(tmp, tag)
+            os.makedirs(out)
+            counts, result[tag] = run_cli(tag, path, out, ckpt, *flags,
+                                          *(["--chunk-seconds", str(chunk)] if chunk else []))
+            outs = check_outputs(tag, out, inputs)
+            launches[tag] = by_entry(counts)
+            if ((per_batch and sum(counts.values()) != per_batch * n_batches)
+                    or len(launches[tag]) != 2 or set(by_route(counts)) != {F32}):
+                raise AssertionError(f"cli {tag}: {n_batches} batches launched the "
+                                     f"kernel as {counts}")
+            result[tag]["vs_unfused"] = against_unfused(
+                tag, outs, unfused_cli(model, src, inputs, *flags, chunk=chunk))
+
+        run("bucketed", PATH_LAUNCHES)
+        # the aux signal through the snake layer: deterministic, 14 blocks
+        run("aux", 14, "--use_aux_signal", "true")
+        # the 7 s file in 2 s chunks, 5 rows in one call
+        run("chunked", None, inputs=[f for f in files if f[0] == "c.wav"],
+            path=os.path.join(src, "c.wav"), chunk=2)
+        # an ensemble of 4 with a warm start at step 3: 4-12 rows a batch
+        run("ensemble", 10 * (N_STEPS - 3) + 14, "--ensemble", "4",
+            "--ensemble_stat", "median", "--warm_start", "3")
+        del model
+    log(f"[cli] {card_line()}: realtime factor bucketed "
+        f"{result['bucketed']['realtime']}x, chunked {result['chunked']['realtime']}x, "
+        f"ensemble {result['ensemble']['realtime']}x (f32, batch {CLI_BATCH}, "
+        f"{N_STEPS} steps)")
+    return result, launches
+
+
 def kernel_group(name: str) -> str:
     low = name.lower()
     for group, keys in GROUPS:
@@ -836,22 +1060,43 @@ def main() -> int:
     import open_universe_tpu_torch  # noqa: F401  (fails outside the repo)
 
     t_start = time.perf_counter()
+    phase_s, t_last = {}, [t_start]
+
+    def lap(name):
+        """The wall seconds of the phase that just ended."""
+        now = time.perf_counter()
+        phase_s[name], t_last[0] = now - t_last[0], now
+        log(f"[time] {name}: {phase_s[name]:.1f} s")
+
     build_s, ptxas = phase_build()
+    lap("1 build")
     worst = phase_kernel_vs_plain()
     worst_rows = phase_kernel_vs_plain(rows=True)
+    lap("2 kernel vs plain")
     model, counts, counts_bf16, path_diff = phase_main_path()
+    lap("3 main path")
     hz24, shapes_24k = phase_24k()
+    lap("3c 24 kHz")
     main_counts = {**counts, **counts_bf16}  # keys differ by route
     entries = by_entry(main_counts)
     # at batch 128 every block takes the unpacked entry, at these shapes
     rates, shapes, mix, noise = phase_timing(model, by_shape(counts))
+    lap("4 timing")
     small_rates, rows_shapes, (mix1, noise1) = phase_small_batch(
         model, by_shape(counts, "fused_conv_chain_rows"))
+    lap("4b small batch")
     profiled = phase_profile(model, mix, noise)
     profiled_1 = phase_profile(model, mix1, noise1, runs=(("batch 1", True),))
+    lap("5 profile")
     del model, mix, noise
     served, serve_entries = phase_serving()
+    lap("6 serving")
+    cli, cli_launches = phase_cli()
+    lap("7 cli")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
+
+    def cli_entry(entry):
+        return {run: n.get(entry, 0) for run, n in cli_launches.items()}
 
     def total(key, shapes=shapes):
         return sum(s[key] * s["launches"] for s in shapes)
@@ -899,6 +1144,7 @@ def main() -> int:
         "audio_s_per_s": rates,
         "main_path_kernel_vs_unfused": path_diff,
         "build_s": build_s,
+        "phase_s": phase_s,
         "registers": {k["kernel"]: k["registers"] for ks in ptxas.values() for k in ks},
         "spills": [k["kernel"] for ks in ptxas.values() for k in ks if k["spills"]],
         # universepp_24k.yaml: enhance at f32 (phase 3c), shapes at batch 128
@@ -906,6 +1152,8 @@ def main() -> int:
         "universepp_24k": {**hz24, **sums(shapes_24k), **sums(shapes_24k, "f32_"),
                            "f32_cuda_core_bound_ms": cuda_core_bound(shapes_24k)},
         "profile": profiled,
+        # launches by the enhance CLI's runs of phase 7
+        "cli_launches": cli_entry("fused_conv_chain"),
     }, {
         "name": "fused_conv_chain_rows",
         "route": "cuda",
@@ -926,6 +1174,8 @@ def main() -> int:
         "enhance_small_batch": small_rates,
         "profile_batch1": profiled_1,
         "serving": served,
+        "cli_launches": cli_entry("fused_conv_chain_rows"),
+        "cli": cli,
     }]}
     for tag, sh in (("batch 128, 16 kHz", shapes), ("batch 128, 24 kHz", shapes_24k),
                     ("rows, batch 16", rows_shapes)):

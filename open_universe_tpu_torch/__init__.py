@@ -7,8 +7,8 @@ run on CUDA unless the caller passes ``device="cpu"``.
 """
 __version__ = "0.1.0"
 
-_SUBMODULES = ("bin", "configs", "data", "inference", "models", "nn", "ops",
-               "utils")
+_SUBMODULES = ("bin", "configs", "data", "inference", "models", "native", "nn",
+               "ops", "utils")
 
 
 def __getattr__(name):

@@ -12,10 +12,9 @@ fewer than 128 channels launch the kernel's rows entry, as the JAX package's
 packed mode does (``nn/blocks.py``).
 
 API:
-  POST /enhance   body = a WAV file -> 200 with a WAV body at the input
-                  sample rate and channel count; every channel is one
-                  micro-batch row.  FLAC and MP3 answer 400 (their decoders
-                  are not ported yet).
+  POST /enhance   body = a wav/flac/mp3 file -> 200 with a WAV body at the
+                  input sample rate and channel count; every channel is one
+                  micro-batch row.  A body that does not decode answers 400.
   GET  /healthz   liveness and model metadata, JSON
   GET  /stats     request, batch and device-time counters, JSON
 

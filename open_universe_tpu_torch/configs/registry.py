@@ -80,8 +80,11 @@ def build_universe(**kw):
 def build_universe_gan(**kw):
     from ..models.universe_gan import UniverseGAN
 
-    use_sd = bool((kw.get("losses") or {}).get("use_signal_decoupling", False))
-    return UniverseGAN(use_signal_decoupling=use_sd, **_universe_kwargs(kw))
+    losses = kw.get("losses") or {}
+    return UniverseGAN(
+        use_signal_decoupling=bool(losses.get("use_signal_decoupling", False)),
+        signal_decoupling_act=losses.get("signal_decoupling_act"),
+        **_universe_kwargs(kw))
 
 
 @register("layers.dyn_range_comp.IdentityTransform")

@@ -2,15 +2,17 @@
 package ``inference/signature_to_parser.py``, reference
 inference_utils/signature_to_parser.py).
 
-Only int, float, str and bool arguments become flags; the torch-typed ones
-(``compute_dtype``, ``generator``, ``noise``) are left out.
+Only int, float, str and bool arguments become flags (``n_steps``,
+``epsilon``, ``fake_score_snr``, ``use_aux_signal``, ``keep_rms``,
+``ensemble``, ``ensemble_stat``, ``warm_start``); ``target`` and the
+torch-typed ones (``compute_dtype``, ``generator``, ``noise``) are left out.
 """
 from __future__ import annotations
 
 import argparse
 import typing
 
-_SKIP = {"mix", "return", "compute_dtype", "generator", "noise"}
+_SKIP = {"mix", "target", "return", "compute_dtype", "generator", "noise"}
 
 
 def add_enhance_arguments(model, parser: argparse.ArgumentParser):

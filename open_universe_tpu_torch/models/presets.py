@@ -45,7 +45,8 @@ def universepp(fs: int = 16000, device: Device = None, seed: int = 0) -> Univers
         score_model=score, condition_model=cond,
         diffusion={"schedule": "geometric", "sigma_min": 0.0005,
                    "sigma_max": 5.0, "n_steps": 8, "epsilon": 1.3},
-        edm={"noise": 0.25}, use_signal_decoupling=True)
+        edm={"noise": 0.25}, use_signal_decoupling=True,
+        signal_decoupling_act="snake")
     return init_weights(model, seed).to(device)
 
 

@@ -4,8 +4,10 @@
 ``Universe.enhance`` runs the conditioner once and the score network
 ``n_steps`` times (EDM fast path, or the generic score path), in inference
 scope and without autograd, so eligible ConvBlocks take the fused kernel.
-Not ported yet: ensembles, warm start, ``use_aux_signal``, the fake-score
-probe (``target``), non-identity transforms and the training losses.
+It takes every argument of the JAX package's ``enhance`` but ``packed``:
+ensembles (mean, median, signal_median), warm start, ``use_aux_signal`` and
+the fake-score probe (``target``).  Not ported yet: non-identity transforms
+and the training losses.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from torch import nn
 
 from ..ops import kernels
 from ..utils.norm import normalize_batch
+from ..utils.stats import signal_median
 from .condition import ConditionerNetwork
 from .score import ScoreNetwork
 
@@ -117,9 +120,8 @@ class Universe(nn.Module):
 
     # ---------------------------------------------------------------- sampler
     def _draws(self, noise, generator, shape, count, device):
-        """The sampler's standard-normal draws: the initial one, then one per
-        loop step.  ``noise`` (``count`` arrays of ``shape``) replaces the
-        generator."""
+        """The sampler's ``count`` standard-normal draws of ``shape``, from
+        ``generator`` or, when given, the arrays of ``noise``."""
         if noise is None:
             return [torch.randn(shape, generator=generator, device=device)
                     for _ in range(count)]
@@ -130,27 +132,64 @@ class Universe(nn.Module):
                              f"got {[tuple(z.shape) for z in draws]}")
         return draws
 
+    @staticmethod
+    def _as_batch(x: torch.Tensor) -> torch.Tensor:
+        """(T,), (B, T) or (B, T, C) -> (B, T, C)."""
+        if x.dim() == 1:
+            return x[None, :, None]
+        if x.dim() == 2:
+            return x[:, :, None]
+        if x.dim() > 3:
+            raise ValueError("input should have at most 3 dimensions")
+        return x
+
     @torch.no_grad()
     def enhance(self, mix, n_steps: Optional[int] = None,
-                epsilon: Optional[float] = None, keep_rms: bool = False,
+                epsilon: Optional[float] = None,
+                target: Optional[torch.Tensor] = None,
+                fake_score_snr: Optional[float] = None,
+                use_aux_signal: bool = False,
+                keep_rms: bool = False,
+                ensemble: Optional[int] = None,
+                ensemble_stat: str = "median",
+                warm_start: Optional[int] = None,
                 compute_dtype: Optional[torch.dtype] = None,
                 generator: Optional[torch.Generator] = None,
                 noise: Optional[Sequence[Any]] = None) -> torch.Tensor:
         """Iterative score-based enhancement (reference universe.py:231-375).
 
         mix: (T,), (B, T) or (B, T, C) waveform, moved to the model's device.
+        target: the clean signal, shaped like mix.  Given, the score network
+        is replaced by the fake-score probe: the analytic score towards the
+        target plus noise at ``fake_score_snr`` dB (default 5).
+        use_aux_signal: return ``aux_to_wav`` of the conditioner's auxiliary
+        signal; the sampler does not run.
+        ensemble: enhance E copies of the batch with independent noise and
+        reduce them with ``ensemble_stat``: mean, median (the mean of the
+        two middle members of an even ensemble) or signal_median.
+        warm_start: start the sampler at step k from ``aux_to_wav`` of the
+        auxiliary signal plus noise at sigma[k]; n_steps - 1 - k steps run.
         compute_dtype: run the networks in this dtype (e.g. torch.bfloat16)
         while the sampler state, normalisation and the STFT stay float32.
         generator: draws the sampler noise (on the model's device).
-        noise: the draws themselves, replacing the generator: n_steps arrays
-        of shape (B, T_padded, C), the initial draw first.
+        noise: the draws themselves, replacing the generator, each of shape
+        (E*B, T_padded, C) (E = 1 without an ensemble, rows member-major):
+        the initial draw, one per sampler step (n_steps - 1 - warm_start),
+        then with ``target`` one per probe call (n_steps - warm_start).
+        With ``use_aux_signal`` there are none.
         """
         with kernels.inference_scope():
-            return self._enhance(mix, n_steps, epsilon, keep_rms, compute_dtype,
-                                 generator, noise)
+            return self._enhance(
+                mix, n_steps, epsilon, target, fake_score_snr, use_aux_signal,
+                keep_rms, ensemble, ensemble_stat, warm_start, compute_dtype,
+                generator, noise)
 
-    def _enhance(self, mix, n_steps, epsilon, keep_rms, compute_dtype,
-                 generator, noise):
+    def aux_to_wav(self, y_aux: torch.Tensor) -> torch.Tensor:
+        return y_aux
+
+    def _enhance(self, mix, n_steps, epsilon, target, fake_score_snr,
+                 use_aux_signal, keep_rms, ensemble, ensemble_stat, warm_start,
+                 compute_dtype, generator, noise):
         device = next(self.parameters()).device
         net_dtype = compute_dtype or torch.float32
         if epsilon is None:
@@ -162,18 +201,23 @@ class Universe(nn.Module):
         if not mix.is_floating_point():
             mix = mix.float()
         x_ndim = mix.dim()
-        if x_ndim == 1:
-            mix = mix[None, :, None]
-        elif x_ndim == 2:
-            mix = mix[:, :, None]
-        elif x_ndim > 3:
-            raise ValueError("input should have at most 3 dimensions")
+        mix = self._as_batch(mix)
 
         mix_rms = torch.sqrt(torch.mean(mix**2, dim=(-2, -1), keepdim=True))
+        if ensemble is not None:
+            mix_shape = tuple(mix.shape)
+            mix = mix.repeat(ensemble, 1, 1)  # member-major, as jnp.tile
+            mix_rms = mix_rms.repeat(ensemble, 1, 1)
         mix_len = mix.shape[1]
         mix, pad = self.pad(mix)
-        (mix, _), *_ = self.normalize_batch((mix, None))
+        if target is not None:
+            target = self._as_batch(torch.as_tensor(target, device=device).float())
+            if ensemble is not None:
+                target = target.repeat(ensemble, 1, 1)
+            target, _ = self.pad(target, pad=pad)
+        (mix, target), *_ = self.normalize_batch((mix, target))
         mix_wav = mix
+        score_snr = 5.0 if fake_score_snr is None else fake_score_snr
 
         # sampler coefficients (reference universe.py:300-311)
         delta_t = 1.0 / (n_steps - 1)
@@ -186,42 +230,64 @@ class Universe(nn.Module):
         sigma = self.get_std_dev(time).to(mix.dtype)
         bsz = mix.shape[0]
 
-        cond, _, _ = self.condition_model(mix.to(net_dtype),
-                                          x_wav=mix_wav.to(net_dtype))
+        cond, aux_signal, _ = self.condition_model(mix.to(net_dtype),
+                                                   x_wav=mix_wav.to(net_dtype))
+        aux_signal = aux_signal.float()
 
-        n_loop = n_steps - 1
-        draws = self._draws(noise, generator, mix.shape, n_loop + 1, device)
-        x = draws[0] * sigma[0]
-
-        if self.with_edm:
-            # EDM fast path: with speech_est = w_skip*x + w_out*net_out and
-            # score = (speech_est - x)/sigma^2, the step
-            # x <- x + sigma^2*eta*score + beta*z is
-            # x <- (1 - eta + eta*w_skip)*x + eta*w_out*net_out + beta*z
-            w = self._edm_weights(sigma)
-            noise_sig = w["noise"] * sigma
-            for i in range(n_loop):
-                net_out = self.score_model(
-                    (w["in"][i] * x).to(net_dtype),
-                    noise_sig[i].expand(bsz).to(net_dtype), cond)
-                cx = 1.0 - eta + eta * w["skip"][i]
-                cn = eta * w["out"][i]
-                x = cx * x + cn * net_out.float() + (beta * sigma[i + 1]) * draws[i + 1]
-            # final denoise: x + sigma^2*score == speech_est
-            net_out = self.score_model((w["in"][-1] * x).to(net_dtype),
-                                       noise_sig[-1].expand(bsz).to(net_dtype),
-                                       cond)
-            x = w["skip"][-1] * x + w["out"][-1] * net_out.float()
+        if use_aux_signal:
+            self._draws(noise, generator, mix.shape, 0, device)
+            x = self.aux_to_wav(aux_signal.to(net_dtype)).float()
         else:
-            for i in range(n_loop):
-                s_now = sigma[i]
-                score = self.score(x.to(net_dtype), s_now.expand(bsz).to(net_dtype),
-                                   cond).float()
-                z = draws[i + 1] * sigma[i + 1]
-                x = x + s_now**2 * eta * score + beta * z
-            score = self.score(x.to(net_dtype),
-                               sigma[-1].expand(bsz).to(net_dtype), cond).float()
-            x = x + sigma[-1] ** 2 * score
+            n_start = 0 if warm_start is None else warm_start
+            n_loop = n_steps - 1 - n_start
+            n_probe = 0 if target is None else n_loop + 1
+            sig = None if warm_start is None else self.aux_to_wav(aux_signal)
+            draws = self._draws(noise, generator,
+                                mix.shape if sig is None else sig.shape,
+                                1 + n_loop + n_probe, device)
+            steps, probes = draws[1:1 + n_loop], draws[1 + n_loop:]
+            x = draws[0] * sigma[0] if sig is None else sig + draws[0] * sigma[n_start]
+
+            if self.with_edm and target is None:
+                # EDM fast path: with speech_est = w_skip*x + w_out*net_out
+                # and score = (speech_est - x)/sigma^2, the step
+                # x <- x + sigma^2*eta*score + beta*z is
+                # x <- (1 - eta + eta*w_skip)*x + eta*w_out*net_out + beta*z
+                w = self._edm_weights(sigma)
+                noise_sig = w["noise"] * sigma
+                for i in range(n_start, n_steps - 1):
+                    net_out = self.score_model(
+                        (w["in"][i] * x).to(net_dtype),
+                        noise_sig[i].expand(bsz).to(net_dtype), cond)
+                    cx = 1.0 - eta + eta * w["skip"][i]
+                    cn = eta * w["out"][i]
+                    x = (cx * x + cn * net_out.float()
+                         + (beta * sigma[i + 1]) * steps[i - n_start])
+                # final denoise: x + sigma^2*score == speech_est
+                net_out = self.score_model((w["in"][-1] * x).to(net_dtype),
+                                           noise_sig[-1].expand(bsz).to(net_dtype),
+                                           cond)
+                x = w["skip"][-1] * x + w["out"][-1] * net_out.float()
+            else:
+                def score_fn(x, s, probe):
+                    s = s.expand(bsz)
+                    if target is None:
+                        return self.score(x.to(net_dtype), s.to(net_dtype),
+                                          cond).float()
+                    # the fake-score probe, against the target in the
+                    # sampler's domain (JAX's fix of reference
+                    # universe.py:276, which discards the transformed target)
+                    true_score = -(x - target) / s[:, None, None] ** 2
+                    score_rms = torch.sqrt(torch.mean(true_score**2))
+                    return true_score + probe * (score_rms * 10.0 ** (-score_snr / 20.0))
+
+                for i in range(n_start, n_steps - 1):
+                    j = i - n_start
+                    score = score_fn(x, sigma[i], probes[j] if probes else None)
+                    z = steps[j] * sigma[i + 1]
+                    x = x + sigma[i] ** 2 * eta * score + beta * z
+                score = score_fn(x, sigma[-1], probes[-1] if probes else None)
+                x = x + sigma[-1] ** 2 * score
 
         x = self.unpad(x, pad)
         if x.shape[1] < mix_len:
@@ -233,8 +299,28 @@ class Universe(nn.Module):
         scale = torch.amax(torch.abs(x), dim=1, keepdim=True)
         x = torch.where(scale > 1.0, x / scale, x)
 
+        if ensemble is not None:
+            x = ensemble_reduce(x.reshape((-1,) + mix_shape), ensemble_stat)
+
         if x_ndim == 1:
             return x[0, :, 0]
         if x_ndim == 2:
             return x[:, :, 0]
         return x
+
+
+def ensemble_reduce(x: torch.Tensor, stat: str) -> torch.Tensor:
+    """Reduce (E, B, T, C) ensemble members to (B, T, C)."""
+    if stat == "mean":
+        return torch.mean(x, dim=0)
+    if stat == "median":
+        # jnp.median: the mean of the two middle members of an even count
+        # (torch.median returns the lower one)
+        n = x.shape[0]
+        s = torch.sort(x, dim=0).values
+        if n % 2:
+            return s[n // 2]
+        return (s[n // 2 - 1] + s[n // 2]) * 0.5
+    if stat == "signal_median":
+        return signal_median(x)
+    raise NotImplementedError(stat)

@@ -27,6 +27,7 @@ from ..ops import conv as ops_conv
 from ..ops import kernels
 from ..ops.kernels import conv_block
 from .layers import Conv1d, ConvTranspose1d, PReLU
+from .snake import AliasFreeSnake
 
 SQRT_HALF = 1.0 / math.sqrt(2.0)
 ROWS_MAX_BATCH = 64  # the JAX package's packed-mode batch limit
@@ -114,10 +115,12 @@ class PReLUConv(nn.Module):
 
         if act_type == "prelu":
             self.prelu = PReLU()
+        elif act_type == "snake":
+            self.prelu = AliasFreeSnake(in_channels, alpha_logscale=True)
+        elif act_type == "snakebeta":
+            self.prelu = AliasFreeSnake(in_channels, alpha_logscale=True, beta=True)
         elif act_type in ("none", None):
             self.prelu = None
-        elif act_type in ("snake", "snakebeta"):
-            raise NotImplementedError("snake activations are not ported yet")
         else:
             raise ValueError("'act_type' should be one of prelu|snake|snakebeta|none")
 

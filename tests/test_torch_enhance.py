@@ -4,8 +4,12 @@ CPU at float32, given the same weights and the same noise draws.
 Small config of both packages' classes: rate factors [2, 4], 8 channels,
 batch 2, 640 samples, 3 steps.  The EDM fast path and the generic score path
 run with weight norm folded on both sides (the port's ConvBlocks then take
-the fused kernel's plain version) and unfolded (the unfused chain).  Bound:
-2e-5, the sampler-golden bound of PARITY.md.
+the fused kernel's plain version) and unfolded (the unfused chain).  The
+rest of ``enhance`` runs on the same networks in UNIVERSE++ (with the snake
+signal-decoupling layer): ensembles (mean, median of an even and an odd
+ensemble, signal_median, with keep_rms), warm start, ``use_aux_signal`` and
+the fake-score probe (``target``).  Bound: 2e-5, the sampler-golden bound of
+PARITY.md.
 """
 import subprocess
 import sys
@@ -25,9 +29,11 @@ from open_universe_tpu.inference.torch_convert import (  # noqa: E402
 from open_universe_tpu.models.condition import ConditionerNetwork as JaxCond  # noqa: E402
 from open_universe_tpu.models.score import ScoreNetwork as JaxScore  # noqa: E402
 from open_universe_tpu.models.universe import Universe as JaxUniverse  # noqa: E402
+from open_universe_tpu.models.universe_gan import UniverseGAN as JaxUniverseGAN  # noqa: E402
 from open_universe_tpu_torch.models.condition import ConditionerNetwork  # noqa: E402
 from open_universe_tpu_torch.models.score import ScoreNetwork  # noqa: E402
 from open_universe_tpu_torch.models.universe import Universe  # noqa: E402
+from open_universe_tpu_torch.models.universe_gan import UniverseGAN  # noqa: E402
 from open_universe_tpu_torch.ops.kernels import conv_block  # noqa: E402
 from open_universe_tpu_torch.utils.convert import (  # noqa: E402
     fold_weight_norm,
@@ -68,7 +74,7 @@ def _jax_params(model, seed=0):
     key = jax.random.key(0)
     return {name: jax.tree_util.tree_map(
                 draw, jax.eval_shape(getattr(model, name).init, key))
-            for name in ("score_model", "condition_model")}
+            for name in model.model_param_keys()}
 
 
 def _jax_noise(key, n_loop):
@@ -114,10 +120,95 @@ def test_enhance_matches_jax(monkeypatch, record_property, edm, fold):
     np.testing.assert_allclose(out.numpy(), ref, atol=TOL, rtol=0)
 
 
+def _jax_draws(key, shape, n_steps, warm_start=None, probe=False):
+    """JAX's draws in the order the port's ``noise`` takes them
+    (models/universe.py:565-577,608,530-538): the initial one from k_init,
+    step i from step_keys[n_loop + i], then the probe's, step_keys[i] and
+    step_keys[2 n_loop] for the final score."""
+    n_loop = n_steps - 1 - (warm_start or 0)
+    k_init, k_loop = jax.random.split(key)
+    step_keys = jax.random.split(k_loop, 2 * n_loop + 1)
+    keys = [k_init] + [step_keys[n_loop + i] for i in range(n_loop)]
+    if probe:
+        keys += [step_keys[i] for i in range(n_loop)] + [step_keys[2 * n_loop]]
+    return [np.array(jax.random.normal(k, shape)) for k in keys]
+
+
+# enhance arguments beyond the sampler's: (kwargs, steps); E members of the
+# batch are E * B rows of noise
+_REST_CASES = {
+    "median_even_2": (dict(ensemble=2, ensemble_stat="median"), 3),
+    "median_even_4": (dict(ensemble=4, ensemble_stat="median"), 3),
+    "mean_keep_rms": (dict(ensemble=3, ensemble_stat="mean", keep_rms=True), 3),
+    "signal_median": (dict(ensemble=3, ensemble_stat="signal_median"), 3),
+    "warm_start": (dict(warm_start=2), 4),
+    "use_aux_signal": (dict(use_aux_signal=True), 3),
+    "target_probe": (dict(fake_score_snr=10.0, ensemble=2, ensemble_stat="mean"), 3),
+}
+
+
+@pytest.fixture(scope="module")
+def gan_pair():
+    """The small networks as UNIVERSE++ with the snake signal-decoupling
+    layer, folded, in both packages with the same weights."""
+    jm = JaxUniverseGAN(
+        score_model=JaxScore(**_SCORE), condition_model=JaxCond(**_COND),
+        losses={"weights": {"score": 1.0}, "use_signal_decoupling": True,
+                "signal_decoupling_act": "snake"}, **_universe_kwargs(True))
+    params = jax.tree_util.tree_map(
+        np.asarray, jax.jit(lambda p: jax_fold(jm, p))(_jax_params(jm, seed=3)))
+    pm = UniverseGAN(score_model=ScoreNetwork(**_SCORE),
+                     condition_model=ConditionerNetwork(**_COND),
+                     use_signal_decoupling=True, signal_decoupling_act="snake",
+                     **_universe_kwargs(True))
+    fold_weight_norm(pm)
+    assert from_jax_params(pm, params) == []
+    return jm, params, pm
+
+
+@pytest.mark.parametrize("case", list(_REST_CASES))
+def test_enhance_arguments_match_jax(gan_pair, record_property, case):
+    jm, params, pm = gan_pair
+    kwargs, n_steps = _REST_CASES[case]
+    rng = np.random.default_rng(2)
+    mix = rng.standard_normal((B, T)).astype(np.float32) * 0.1
+    if case == "target_probe":
+        kwargs = dict(kwargs, target=mix * 0.5 + 0.01 * rng.standard_normal(
+            (B, T)).astype(np.float32))
+    key = jax.random.key(4)
+    static = {k: v for k, v in kwargs.items() if k != "target"}
+    ref = np.asarray(jax.jit(lambda p, m, tgt: jm.enhance(
+        p, m, key=key, n_steps=n_steps, packed=False, target=tgt, **static))(
+        params, jnp.asarray(mix), kwargs.get("target")))
+    rows = B * kwargs.get("ensemble", 1)
+    noise = ([] if kwargs.get("use_aux_signal") else
+             _jax_draws(key, (rows, T_PADDED, 1), n_steps,
+                        kwargs.get("warm_start"), "target" in kwargs))
+    out = pm.enhance(mix, n_steps=n_steps, noise=noise, **kwargs)
+    assert out.shape == (B, T) and torch.isfinite(out).all()
+    record_property("max_abs_diff", float(np.abs(out.numpy() - ref).max()))
+    np.testing.assert_allclose(out.numpy(), ref, atol=TOL, rtol=0)
+
+
+def test_even_median_averages_the_middle_members():
+    """torch.median returns the lower middle member; jnp.median, and so
+    the port, the mean of the two."""
+    from open_universe_tpu_torch.models.universe import ensemble_reduce
+
+    x = torch.tensor([1.0, 10.0, 2.0, 3.0]).reshape(4, 1, 1, 1)
+    assert float(ensemble_reduce(x, "median")) == 2.5
+    assert np.asarray(jnp.median(jnp.asarray(x.numpy()), axis=0)).item() == 2.5
+    assert torch.median(x, dim=0).values.item() == 2.0
+    with pytest.raises(NotImplementedError):
+        ensemble_reduce(x, "mode")
+
+
 def test_main_path_imports_no_jax():
-    """The port's main path and its serving path, run end to end on the CPU
-    (enhance; a checkpoint loaded by ``load_model`` and served over HTTP),
-    load neither jax nor any module of the JAX package."""
+    """The port's main path, its serving path and its CLI, run end to end
+    on the CPU (enhance; a checkpoint loaded by ``load_model`` and served
+    over HTTP; the CLI on a stereo FLAC in chunks, with the codecs and the
+    native FLAC loader imported), load neither jax nor any module of the JAX
+    package."""
     code = textwrap.dedent(f"""
         import io, sys, tempfile, threading, urllib.request
         from pathlib import Path
@@ -165,6 +256,20 @@ def test_main_path_imports_no_jax():
             assert r.status == 200 and len(r.read()) == 44 + 2 * 800
         srv.shutdown()
         service.close()
+
+        import open_universe_tpu_torch.data.codecs
+        import open_universe_tpu_torch.inference.chunked
+        import open_universe_tpu_torch.native
+        from open_universe_tpu_torch.bin.enhance import main as enhance_main
+        from open_universe_tpu_torch.data.audio import load_audio, save_audio
+
+        (tmp / "in").mkdir()
+        save_audio(tmp / "in" / "a.flac", np.sin(np.arange(1600).reshape(2, 800) / 5) * 0.1,
+                   16000)
+        assert enhance_main([str(tmp / "in"), str(tmp / "out"), "--model",
+                             str(tmp / "weights.ckpt"), "--device", "cpu",
+                             "--n_steps", "2", "--chunk-seconds", "0.05"]) == 0
+        assert load_audio(tmp / "out" / "a.flac")[0].shape == (2, 800)
         if not torch.cuda.is_available():
             try:  # entry points run on CUDA unless asked for the CPU
                 universepp()

@@ -1,6 +1,7 @@
 """The PyTorch port's modules against their JAX counterparts, at float32 on
-the CPU: ops, layers (weight-norm unfolded and folded), blocks, sigma
-embeddings, the two networks, normalisation, and the weight carry-over.
+the CPU: ops, layers (weight-norm unfolded and folded), blocks, the snake
+activations and their resampler, sigma embeddings, the two networks,
+normalisation, the ensemble signal median, and the weight carry-over.
 
 Inputs and weights are made with numpy from a seed; the weights enter the
 JAX param tree and reach the port through ``from_jax_params``.  Bound: 1e-5.
@@ -22,18 +23,21 @@ from open_universe_tpu.models import condition as jcond  # noqa: E402
 from open_universe_tpu.models import score as jscore  # noqa: E402
 from open_universe_tpu.models.presets import universepp as jax_universepp  # noqa: E402
 from open_universe_tpu.utils import normalize_batch as jax_normalize  # noqa: E402
+from open_universe_tpu.utils import signal_median as jax_signal_median  # noqa: E402
 from open_universe_tpu_torch.models import condition as pcond  # noqa: E402
 from open_universe_tpu_torch.models import score as pscore  # noqa: E402
 from open_universe_tpu_torch.models.presets import universepp as port_universepp  # noqa: E402
 from open_universe_tpu_torch.nn import blocks as pblocks  # noqa: E402
 from open_universe_tpu_torch.nn import layers as players  # noqa: E402
 from open_universe_tpu_torch.nn import sigma as psigma  # noqa: E402
+from open_universe_tpu_torch.nn import snake as psnake  # noqa: E402
 from open_universe_tpu_torch.ops import conv as pconv  # noqa: E402
 from open_universe_tpu_torch.ops import stft as pstft  # noqa: E402
 from open_universe_tpu_torch.utils.convert import (  # noqa: E402
     fold_weight_norm,
     from_jax_params,
 )
+from open_universe_tpu_torch.utils import stats as pstats  # noqa: E402
 from open_universe_tpu_torch.utils.norm import normalize_batch  # noqa: E402
 
 TOL = 1e-5
@@ -181,6 +185,38 @@ def test_gru(rng):
         _close(pmod(torch.from_numpy(x)), jmod(params, jnp.asarray(x)))
 
 
+# -------------------------------------------------------------- nn/snake.py
+@pytest.mark.parametrize("orig,new,t", [(1, 2, 37), (2, 1, 74), (2, 1, 73), (3, 2, 20)])
+def test_resample(rng, orig, new, t):
+    x = _x(rng, 2, t, 3)
+    _close(psnake.resample(torch.from_numpy(x), orig, new),
+           jnn.resample(jnp.asarray(x), orig, new))
+
+
+def test_resample_up_and_down(rng):
+    """1 -> 2 -> 1, the anti-aliased activation's sandwich without the
+    activation: the port's and JAX's agree at each stage."""
+    x = _x(rng, 2, 41, 3)
+    up_p = psnake.resample(torch.from_numpy(x), 1, 2)
+    up_j = jnn.resample(jnp.asarray(x), 1, 2)
+    _close(up_p, up_j)
+    _close(psnake.resample(up_p, 2, 1), jnn.resample(up_j, 2, 1))
+
+
+@pytest.mark.parametrize("logscale,beta", [(False, False), (True, False), (True, True)])
+def test_snake(rng, logscale, beta):
+    for jmod, pmod in ((jnn.Snake(5, alpha_logscale=logscale, beta=beta),
+                        psnake.Snake(5, alpha_logscale=logscale, beta=beta)),
+                       (jnn.AliasFreeSnake(5, alpha_logscale=logscale, beta=beta),
+                        psnake.AliasFreeSnake(5, alpha_logscale=logscale, beta=beta))):
+        params = _pair(jmod, pmod)
+        x = _x(rng, 2, 29, 5)
+        with torch.no_grad():
+            _close(pmod(torch.from_numpy(x)), jmod(params, jnp.asarray(x)))
+    assert list(dict(pmod.named_parameters())) == (
+        ["act.act.alpha", "act.act.beta"] if beta else ["act.act.alpha"])
+
+
 # -------------------------------------------------------------- nn/sigma.py
 def test_sigma_embeddings(rng):
     log_sigma = _x(rng, 3)
@@ -221,6 +257,19 @@ def test_prelu_conv(rng, transpose, antialiasing, t):
     x = _x(rng, 2, t, 6)
     with torch.no_grad():
         _close(pmod(torch.from_numpy(x)), jmod(params, jnp.asarray(x)))
+
+
+@pytest.mark.parametrize("act", ["snake", "snakebeta"])
+def test_snake_prelu_conv(rng, act):
+    """The signal-decoupling layer's shape: C -> 1, 3 taps, 'same'."""
+    jmod = jnn.PReLUConv(6, 1, 3, padding="same", act_type=act)
+    pmod = pblocks.PReLUConv(6, 1, 3, padding="same", act_type=act)
+    params = _pair(jmod, pmod)
+    x = _x(rng, 2, 37, 6)
+    with torch.no_grad():
+        out = pmod(torch.from_numpy(x))
+    assert out.shape == (2, 37, 1)
+    _close(out, jmod(params, jnp.asarray(x)))
 
 
 @pytest.mark.parametrize("fold", [False, True])
@@ -312,13 +361,30 @@ def test_normalize_batch(rng, norm, ref):
         _close(a, b)
 
 
+# ----------------------------------------------------------- utils/stats.py
+@pytest.mark.parametrize("n", [4, 5])
+def test_signal_median(rng, n):
+    """An even and an odd ensemble, with ties in the ranks (repeated values)
+    and in the count of median positions (two members win as often)."""
+    x = np.round(_x(rng, n, 3, 40, 1) * 2) / 2  # few distinct values: ties
+    x[:, 2] = 0.0  # every member equal: the stable sort's order decides
+    tie = np.zeros((n, 1, 4, 1), np.float32)
+    tie[:, 0, :, 0] = np.arange(n)[:, None] * np.array([1, 1, -1, -1])
+    for sig in (x, tie):
+        _close(pstats.signal_median(torch.from_numpy(sig)),
+               jax_signal_median(jnp.asarray(sig)))
+
+
 # ----------------------------------------------------------- utils/convert.py
 def test_from_jax_params_matches_torch_export():
     """The carried-over state_dict equals the JAX package's own export to the
-    reference torch layout, on the whole UNIVERSE++ 16 kHz generator tree."""
+    reference torch layout, on the whole UNIVERSE++ 16 kHz generator tree
+    (the signal-decoupling layer included)."""
     jm = jax_universepp(16000)
     params = {"score_model": jax_params(jm.score_model),
-              "condition_model": jax_params(jm.condition_model, seed=1)}
+              "condition_model": jax_params(jm.condition_model, seed=1),
+              "signal_decoupling_layer": jax_params(jm.signal_decoupling_layer,
+                                                    seed=2)}
     export = to_torch_state_dict(jm, params)
     pm = port_universepp(16000, device="cpu")
     assert from_jax_params(pm, params) == []
@@ -355,7 +421,7 @@ def test_universepp_24k_preset_matches_config_and_jax_tree(monkeypatch):
     params = {name: jax.tree_util.tree_map(
         lambda s: np.zeros(s.shape, np.float32),
         jax.eval_shape(getattr(jm, name).init, jax.random.key(0)))
-        for name in ("score_model", "condition_model")}
+        for name in jm.model_param_keys()}
     assert from_jax_params(pm, params) == []
     widths = sorted({m.conv1.out_channels for m in pm.modules()
                      if isinstance(m, pblocks.ConvBlock)})

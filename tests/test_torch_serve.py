@@ -1,5 +1,6 @@
-"""The PyTorch port's serving slice on the CPU: the config registry, WAV IO
-and resampling, ``load_model`` on a reference-layout Lightning checkpoint
+"""The PyTorch port's serving slice on the CPU: the config registry, audio
+IO (WAV, FLAC and, where libmpg123 and libmp3lame load, MP3) and
+resampling, ``load_model`` on a reference-layout Lightning checkpoint
 against the JAX package's loader (the EMA-shadowed, folded weights, and
 ``enhance`` through the kernel's rows entry against JAX's packed
 ``enhance`` on the same noise within 2e-5), the ``enhance`` flag reflection,
@@ -48,6 +49,7 @@ from open_universe_tpu_torch.utils.convert import (  # noqa: E402
 )
 
 from test_checkpoint_conversion import TINY_GAN_CFG  # noqa: E402
+from test_torch_codecs import mp3_libraries  # noqa: E402
 
 FS = 16000
 TOL = 2e-5
@@ -127,9 +129,15 @@ def test_wav_io_and_resample(tmp_path, rng):
     np.testing.assert_allclose(y, x, atol=2.0 / 32767)  # int16 truncation and scale
     np.testing.assert_allclose(resample_audio(y, 24000, FS),
                                np.asarray(jax_resample(y, 24000, FS)), atol=1e-6)
-    for name in ("a.flac", "a.mp3"):
-        with pytest.raises(NotImplementedError, match="decoder"):
-            load_audio(tmp_path / name)
+    save_audio(tmp_path / "a.flac", x, 24000)  # lossless: the 16-bit samples
+    y, fs = load_audio(tmp_path / "a.flac")
+    assert fs == 24000 and y.shape == (2, 1000)
+    np.testing.assert_array_equal(
+        y, np.clip(np.round(x * 32768.0), -32768, 32767) / 32768.0)
+    if mp3_libraries():
+        save_audio(tmp_path / "a.mp3", x, 24000)  # lossy; the encoder pads frames
+        y, fs = load_audio(tmp_path / "a.mp3")
+        assert fs == 24000 and y.shape[0] == 2 and y.shape[1] >= 1000
 
 
 # ------------------------------------------------------------------ load_model
@@ -172,7 +180,7 @@ def test_load_model_matches_jax_loader(tmp_path, rng, monkeypatch, record_proper
     jm2, jparams = jax_load_model(str(tmp_path / "weights.ckpt"), fold_wn=False)
     want = instantiate(SERVE_CFG)
     from_jax_params(want, jax.tree_util.tree_map(
-        np.asarray, {k: jparams[k] for k in ("score_model", "condition_model")}))
+        np.asarray, {k: jparams[k] for k in jm2.model_param_keys()}))
     ckpt = tmp_path / "weights.ckpt"
     for fold in (False, True):
         got = model_loader.load_model(ckpt, fold_wn=fold, device="cpu").state_dict()
@@ -230,8 +238,10 @@ def test_enhance_flags_are_reflected():
     assert got is model and seen == {"name": "m.ckpt", "device": "cpu"}
     assert kw == {"n_steps": 3, "epsilon": 1.3, "keep_rms": True}
     flags = {a.dest for a in parser._actions}
-    assert {"n_steps", "epsilon", "keep_rms"} <= flags
-    assert not flags & {"compute_dtype", "generator", "noise", "mix"}
+    assert {"n_steps", "epsilon", "keep_rms", "fake_score_snr", "use_aux_signal",
+            "ensemble", "ensemble_stat", "warm_start"} <= flags
+    assert not flags & {"compute_dtype", "generator", "noise", "mix", "target",
+                        "packed"}
 
 
 # ---------------------------------------------------------------------- server
@@ -340,6 +350,19 @@ def test_stereo_request_equals_direct_enhance(server, rng):
     np.testing.assert_allclose(out, want, atol=1e-4 + 1.0 / 32767, rtol=0)
 
 
+def test_flac_request_is_enhanced(server, rng, tmp_path):
+    """A FLAC body decodes (the port's codec) and answers 200 with a WAV of
+    its rate and channels."""
+    url, _ = server
+    t = int(0.05 * FS)
+    save_audio(tmp_path / "a.flac", (0.1 * rng.standard_normal((2, t))).astype(
+        np.float32), FS)
+    status, resp = _post(url, (tmp_path / "a.flac").read_bytes())
+    assert status == 200, resp
+    out = _decode(resp)
+    assert out.shape == (2, t) and np.isfinite(out).all()
+
+
 def load_audio_bytes(body):
     import tempfile
 
@@ -365,7 +388,7 @@ def test_error_statuses(server, rng):
     assert _post(url, _wav_bytes(too_long))[0] == 413
     assert _post(url, b"RIFFnot-a-wav-file")[0] == 400
     status, body = _post(url, b"fLaC" + bytes(64))
-    assert status == 400 and b"FLAC decoder" in body
+    assert status == 400 and b"undecodable audio: flac" in body
     assert _stats(url)["errors"] == 0
 
 

@@ -75,6 +75,28 @@ Phases, each of which raises (exit code != 0) on failure:
    16-bit rounding).  The CLI's realtime factor,
    bucketed and chunked, is logged beside the card's name and power limit.
 
+3d. Step 0 of training's slice: an f16 ``enhance`` (no kernel route) and a
+   C = 40 ConvBlock (no kernel width) run the unfused chain on the card:
+   no launch, equal to the chain with the kernels off.
+7b. cuDNN TF32: the server's lone 2 s request (``enhance`` at batch 1) and
+   a CLI batch (batch 8) under PyTorch's default (cuDNN TF32 on) with the
+   kernel, against the unfused chain with TF32 off; logged against the
+   entry points' bound 1e-4 + 1/32767.
+8. Training.  (a) The training entry point
+   (``open_universe_tpu_torch.train``'s ``main``, then ``Trainer.fit``)
+   at full width: the ``universepp_vb_16k`` experiment, batch 40 x 2 s
+   crops of 80 synthetic 2.5 s pairs, f32, PyTorch's TF32 defaults,
+   ``TRAIN_STEPS`` steps and a checkpoint at the last: losses finite,
+   every optimised tensor moved (one whose gradient stays below Adam's
+   epsilon may not), the signal-decoupling layer did not, every ConvBlock
+   parameter has a gradient, and no fused-kernel launch happened in the
+   steps (the kernel has no backward); step times, peak memory, and one
+   step's losses with cuDNN TF32 on against off.  (b) One step at a narrow
+   width on the card against the same step on the CPU, same weights and
+   draws, TF32 off, with the bounds of ``phase_train_step_vs_cpu``.
+   (c) ``load_model`` on (a)'s checkpoint and ``enhance`` through the
+   kernel against the unfused chain (<= 1e-4, 94 launches).
+
 The last two lines are a JSON object with one entry per kernel (per-enhance
 sums; each shape's numbers are on the log lines of phases 3c, 4 and 4b; the
 CLI's launches per run of phase 7) and
@@ -120,6 +142,18 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 CUDA_CORE_F32_FLOPS = 67e12  # the bound of the earlier CUDA-core f32 kernel
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# phase 8: the training entry point at the universepp_vb_16k experiment's
+# batch (40 x 2 s crops) on TRAIN_PAIRS synthetic pairs of TRAIN_PAIR_S
+TRAIN_STEPS = 6
+TRAIN_BATCH = 40
+TRAIN_PAIRS, TRAIN_PAIR_S = 80, 2.5
+TRAIN_OVERRIDES = []  # full width
+# phase 8b: one step on the card against the CPU at a narrow width
+NARROW_OVERRIDES = ["model.score_model.n_channels=8", "model.score_model.noise_cond_dim=64",
+                    "model.condition_model.n_mels=20",
+                    "model.losses.multi_period_discriminator.discriminator_channel_mult=0.125",
+                    "model.losses.multi_resolution_discriminator.discriminator_channel_mult=0.25"]
+NARROW_T = 8000
 
 # first matching substring of a device kernel's lower-cased name names its
 # group; casts and contiguous copies are copy kernels, pads a fill and a copy
@@ -1052,6 +1086,333 @@ def phase_profile(model, mix, noise, runs=(("kernel", True), ("unfused", False))
     return result
 
 
+def phase_step0(model):
+    """The fused path refuses what the kernel refuses: an f16 enhance and a
+    C = 40 block run the unfused chain on the card (no launch, no error) and
+    equal it with the kernels off."""
+    from open_universe_tpu_torch.nn.blocks import ConvBlock
+    from open_universe_tpu_torch.nn.layers import init_weights
+    from open_universe_tpu_torch.ops import kernels
+    from open_universe_tpu_torch.ops.kernels import conv_block
+    from open_universe_tpu_torch.utils.convert import fold_weight_norm
+
+    t = int(CLIP_S * FS)
+    g = torch.Generator(device=DEVICE).manual_seed(11)
+    mix = torch.randn(2, t, generator=g, device=DEVICE) * 0.05
+    noise = noise_draws(model, 2, t, seed=12)
+    out, counts = counted_enhance(model, mix, noise, torch.float16)
+    diff16 = (out - unfused_enhance(model, mix, noise, torch.float16)).abs().max().item()
+    log(f"[step0] f16 enhance: {sum(counts.values())} launches, max|fused path - unfused| = "
+        f"{diff16:.3e}, finite {bool(torch.isfinite(out).all())}")
+    if counts or not diff16 == 0.0 or not torch.isfinite(out).all():
+        raise AssertionError("an f16 enhance must run the unfused chain")
+
+    block = fold_weight_norm(init_weights(ConvBlock(40), seed=1)).to(DEVICE)
+    h = torch.randn(2, 1000, 40, generator=g, device=DEVICE)
+    nc = torch.randn(2, 80, generator=g, device=DEVICE)
+    conv_block.launches.clear()
+    with torch.no_grad():
+        got = block(h, noise_cond=nc)
+        kernels.enable(False)
+        try:
+            want = block(h, noise_cond=nc)
+        finally:
+            kernels.enable(True)
+    diff40 = max((a - b).abs().max().item() for a, b in zip(got, want))
+    n40 = sum(conv_block.launches.values())
+    log(f"[step0] C=40 block: {n40} launches, max|d| vs unfused = {diff40:.3e}")
+    if n40 or not diff40 == 0.0:
+        raise AssertionError("a C=40 block must run the unfused chain")
+    return {"f16_enhance": {"launches": 0, "max_abs_diff": diff16},
+            "c40_block": {"launches": 0, "max_abs_diff": diff40}}
+
+
+def tf32_flags(on: bool) -> None:
+    """PyTorch's defaults (cuDNN TF32 on, matmul TF32 off), or both off."""
+    torch.backends.cudnn.allow_tf32 = on
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def phase_tf32_inference():
+    """The server's lone 2 s request (enhance at batch 1, what phase 6 holds
+    the server to) and a CLI batch (--batch-size 8 of 2 s files) under
+    PyTorch's default cuDNN TF32, kernel on, against the unfused chain with
+    TF32 off, on phase 6's checkpoint."""
+    from open_universe_tpu_torch.inference.model_loader import load_model
+
+    with tempfile.TemporaryDirectory() as tmp:
+        model = load_model(write_checkpoint(tmp), device=DEVICE)
+    out = {}
+    t = int(CLIP_S * FS)
+    for tag, batch in (("served_request", 1), ("cli_batch", 8)):
+        g = torch.Generator(device=DEVICE).manual_seed(21)
+        mix = torch.randn(batch, t, generator=g, device=DEVICE) * 0.05
+        noise = noise_draws(model, batch, t, seed=22)
+        tf32_flags(True)
+        try:
+            on, _ = counted_enhance(model, mix, noise)
+        finally:
+            tf32_flags(False)
+        diff = (on - unfused_enhance(model, mix, noise)).abs().max().item()
+        out[tag] = diff
+        log(f"[tf32] {tag} (batch {batch}): cuDNN TF32 on + kernel vs TF32 off + unfused: "
+            f"max|d| = {diff:.3e} (the entry points' bound 1e-4 + 1/32767 = "
+            f"{1e-4 + 1 / 32767:.3e}: {'holds' if diff <= 1e-4 + 1 / 32767 else 'BROKEN'})")
+    return out
+
+
+def write_pairs(root: str, n: int, seconds: float, seed: int = 0) -> None:
+    """n paired 16 kHz WAVs in the NoisyDataset layout
+    (<root>/train/{noisy,clean}/*.wav): a clean harmonic tone in noise."""
+    from open_universe_tpu_torch.data.audio import save_audio
+
+    rng = np.random.default_rng(seed)
+    for d in ("noisy", "clean"):
+        os.makedirs(os.path.join(root, "train", d), exist_ok=True)
+    t = np.arange(int(seconds * FS)) / FS
+    for i in range(n):
+        f0 = rng.uniform(100, 300)
+        clean = 0.1 * np.sin(2 * np.pi * f0 * t) * (1 + 0.5 * np.sin(2 * np.pi * 3 * t))
+        clean += 0.01 * rng.standard_normal(t.shape)
+        noisy = clean + 0.05 * rng.standard_normal(t.shape)
+        save_audio(os.path.join(root, "train", "clean", f"p{i:03d}.wav"), clean[None], FS)
+        save_audio(os.path.join(root, "train", "noisy", f"p{i:03d}.wav"), noisy[None], FS)
+
+
+def config_dir() -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "config")
+
+
+def phase_training():
+    """8a: the training entry point at full width (universepp_vb_16k, batch
+    40 x 2 s, f32, PyTorch's TF32 defaults) for TRAIN_STEPS steps on
+    synthetic pairs; its checks; the losses of one step with cuDNN TF32 on
+    against off.  Returns its numbers and the checkpoint it wrote."""
+    import glob
+
+    from open_universe_tpu_torch.nn.blocks import ConvBlock
+    from open_universe_tpu_torch.ops.kernels import conv_block
+    from open_universe_tpu_torch.train.__main__ import main as train_main
+
+    tmp = tempfile.mkdtemp()
+    data = os.path.join(tmp, "data")
+    t0 = time.perf_counter()
+    write_pairs(data, TRAIN_PAIRS, TRAIN_PAIR_S)
+    log(f"[train] {TRAIN_PAIRS} pairs of {TRAIN_PAIR_S} s written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    tf32_flags(True)
+    try:
+        trainer = train_main([
+            "experiment=universepp_vb_16k", f"device={DEVICE}", "train=false",
+            f"datamodule.datasets.vb-train-16k.audio_path={data}",
+            f"datamodule.train.dl_opts.batch_size={TRAIN_BATCH}",
+            f"trainer.max_steps={TRAIN_STEPS}", "trainer.val_check_interval=1000000",
+            f"trainer.checkpoint_every={TRAIN_STEPS}", "trainer.log_every=1",
+            f"path.exp_root={tmp}/exp", *TRAIN_OVERRIDES])
+        model = trainer.model
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        conv_block.launches.clear()
+        t0 = time.perf_counter()
+        trainer.fit()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = sum(conv_block.launches.values())
+    finally:
+        tf32_flags(False)
+    (run_dir,) = glob.glob(os.path.join(tmp, "exp", "universepp_vb_16k", "*"))
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    n_params = {k: sum(p.numel() for p in getattr(model, k).parameters())
+                for k in model.model_param_keys() + model.disc_param_keys()}
+    for row in rows:
+        log(f"[train] step {row['step']}: loss_gen {row['train/loss_gen']:.4f} "
+            f"(score {row['train/score']:.4f}, mel {row['train/signal_mel']:.4f}) "
+            f"loss_disc {row['train/loss_disc']:.4f}, {row['perf/step_time_s']:.3f} s, "
+            f"peak {row.get('perf/peak_mem_gib', float('nan')):.2f} GiB")
+    if len(rows) != TRAIN_STEPS or not all(
+            np.isfinite(v) for row in rows for k, v in row.items() if k.startswith("train/")):
+        raise AssertionError(f"training losses: {rows}")
+    moved, still = {}, {}
+    for key in model.model_param_keys() + model.disc_param_keys():
+        ps = [(n, p) for n, p in model.named_parameters() if n.startswith(key + ".")]
+        moved[key] = sum(not torch.equal(p.detach(), before[n]) for n, p in ps) / len(ps)
+        still.update({n: (float(p.grad.abs().max()), float(p.detach().abs().min()))
+                      for n, p in ps if torch.equal(p.detach(), before[n])})
+    # AdamW moves an element by lr g / (|g| + 1e-8) a step: an element whose
+    # float32 spacing exceeds the sum of the warmup's first learning rates
+    # cannot move, nor, in a few steps, one whose gradient stays below
+    # Adam's epsilon (a PReLU slope whose inputs are almost all positive)
+    lr_sum = sum(trainer.step_fn.lr_gen(i) for i in range(TRAIN_STEPS))
+    stuck = {n: v for n, v in still.items() if not n.startswith("signal_")}
+    log(f"[train] share of tensors moved by group: {moved}; params {n_params}")
+    log(f"[train] optimized tensors that did not move (last max|grad|, min|p|): {stuck}; "
+        f"the generator's learning rates sum to {lr_sum:.3e}")
+    if moved.get("signal_decoupling_layer", 0.0) != 0.0 or any(
+            not moved[k] > 0.0 for k in model.optimized_param_keys() + model.disc_param_keys()
+    ) or any(g >= 1e-8 and np.spacing(np.float32(p)) <= 2 * lr_sum
+             for g, p in stuck.values()):
+        raise AssertionError(f"the wrong parameters moved: {moved}, {stuck}")
+    blocks = [m for m in model.modules() if isinstance(m, ConvBlock)]
+    no_grad = [n for b in blocks for n, p in b.named_parameters()
+               if p.grad is None or not p.grad.abs().max() > 0]
+    log(f"[train] {len(blocks)} ConvBlocks, every parameter with a gradient: "
+        f"{not no_grad}; fused-kernel launches during the steps: {launches}")
+    if no_grad or launches:
+        raise AssertionError(f"ConvBlock gradients missing {no_grad[:5]}, launches {launches}")
+    times = [row["perf/step_time_s"] for row in rows]
+    result = {"steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "crop_s": 2.0,
+              "first_step_s": times[0], "median_step_s": float(np.median(times[1:])),
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "fit_s": fit_s, "params": n_params, "launches": launches,
+              "losses": {k: [row[k] for row in rows]
+                         for k in ("train/loss_gen", "train/loss_disc")}}
+    log(f"[train] {card_line()}: first step {times[0]:.3f} s, median after it "
+        f"{result['median_step_s']:.3f} s, peak {result['peak_mem_gib']:.2f} GiB "
+        f"(batch {TRAIN_BATCH} x 2 s, f32, cuDNN TF32 on)")
+    result["tf32_losses"] = tf32_losses(model, trainer.dm)
+    (ckpt,) = glob.glob(os.path.join(run_dir, "checkpoints", "*.ckpt"))
+    del trainer, model, before
+    torch.cuda.empty_cache()
+    return result, ckpt
+
+
+@torch.no_grad()
+def tf32_losses(model, dm):
+    """One step's losses (no update) on one training batch with fixed
+    draws, cuDNN TF32 on against off: the largest relative difference."""
+    batch = next(iter(dm.train_dataloader()))
+    mix, target = (torch.from_numpy(batch[k]).to(DEVICE) for k in ("noisy", "clean"))
+    (mix, target, orig), *_ = model.normalize_batch((mix, target, target))
+    g = torch.Generator(device=DEVICE).manual_seed(31)
+    u = torch.rand(mix.shape[0], generator=g, device=DEVICE)
+    z = torch.randn(target.shape, generator=g, device=DEVICE)
+    losses = []
+    for on in (True, False):
+        tf32_flags(on)
+        out = model.generator_forward(mix, target, orig, u=u, z=z)
+        l_disc, dm_ = model.discriminator_losses(out["y_est"], orig)
+        _, gm = model.generator_losses(out, orig, True)
+        losses.append({k: float(v) for k, v in {**dm_, **gm}.items()})
+    tf32_flags(False)
+    rel = {k: abs(losses[0][k] - v) / max(abs(v), 1e-12) for k, v in losses[1].items()}
+    worst = max(rel, key=rel.get)
+    log(f"[tf32] one step's losses at full width, cuDNN TF32 on vs off: worst relative "
+        f"{rel[worst]:.3e} ({worst}); loss_gen {losses[0]['train/loss_gen']:.6f} vs "
+        f"{losses[1]['train/loss_gen']:.6f}")
+    return {"max_rel": rel[worst], "worst": worst, "on": losses[0], "off": losses[1]}
+
+
+def phase_train_step_vs_cpu():
+    """8b: one GAN step at a narrow width (NARROW_OVERRIDES) on the card and
+    on the CPU from the same weights, batch and draws (sigma's uniform draws
+    and the score's noise), TF32 off.  Bounds: losses relative <= 1e-5;
+    every tensor's gradient <= 1e-2 of its largest, a one-element PReLU
+    slope (one sum over the batch, which can cancel) <= 5e-2: the mel loss
+    is an L1, whose gradient's sign flips where the two sides' mel values
+    round apart, and that reaches the conditioner and the MRD; every
+    parameter's change <= 1e-3 of its tensor's largest plus float32's
+    spacing, save elements whose gradient is below 1e-2 of their tensor's
+    largest or 1e-7, whose AdamW step is about +-lr whatever their gradient's
+    size: those are counted and held to 1 % of the elements."""
+    import copy
+
+    from open_universe_tpu_torch.configs.registry import instantiate_trainable
+    from open_universe_tpu_torch.configs.resolve import compose
+    from open_universe_tpu_torch.nn.layers import init_weights
+    from open_universe_tpu_torch.train.trainer import make_gan_step
+
+    cfg = compose(config_dir(), ["experiment=universepp_vb_16k", *NARROW_OVERRIDES])
+    base = init_weights(instantiate_trainable(cfg["model"]), seed=3)
+    rng = np.random.default_rng(4)
+    clean = (0.05 * rng.standard_normal((2, NARROW_T, 1))).astype(np.float32)
+    batch = {"clean": clean,
+             "noisy": clean + (0.02 * rng.standard_normal(clean.shape)).astype(np.float32)}
+    draws = {"u": rng.uniform(size=2).astype(np.float32),
+             "z": rng.standard_normal(clean.shape).astype(np.float32)}
+    runs = {}
+    for tag, device, tf32 in (("cpu", "cpu", False), ("card", DEVICE, False),
+                              ("card_tf32", DEVICE, True)):
+        model = copy.deepcopy(base).to(device)
+        step = make_gan_step(model, cfg["trainer"]["max_steps"])
+        tf32_flags(tf32)
+        try:
+            m = step({k: torch.from_numpy(v).to(device) for k, v in batch.items()},
+                     draws={k: torch.from_numpy(v).to(device) for k, v in draws.items()})
+        finally:
+            tf32_flags(False)
+        runs[tag] = ({k: float(v) for k, v in m.items()},
+                     {n: (p.detach().cpu(), p.grad.cpu()) for n, p in model.named_parameters()})
+    p0 = dict(base.named_parameters())
+    (m_cpu, cpu), (m_card, card) = runs["cpu"], runs["card"]
+    loss_rel = {k: abs(m_card[k] - v) / max(abs(v), 1e-12)
+                for k, v in m_cpu.items() if k.startswith("train/")}
+    grad_rel, delta_rel, small, failed = {}, {}, 0, []
+    for n, (p_cpu, g_cpu) in cpu.items():
+        p_card, g_card = card[n]
+        scale = g_cpu.abs().max().item()
+        grad_rel[n] = (g_card - g_cpu).abs().max().item() / max(scale, 1e-30)
+        if not grad_rel[n] <= (5e-2 if g_cpu.numel() == 1 else 1e-2):
+            failed.append(f"gradient of {n}: {grad_rel[n]:.3e}")
+        d_cpu, d_card = p_cpu - p0[n].detach(), p_card - p0[n].detach()
+        if not d_cpu.abs().max() > 0:
+            continue
+        bound = 1e-3 * d_cpu.abs().max() + 2 * torch.finfo(torch.float32).eps * (
+            p0[n].detach().abs() + d_cpu.abs())
+        bad = (d_card - d_cpu).abs() > bound
+        tiny = (g_cpu.abs() < 1e-2 * scale) | (g_cpu.abs() < 1e-7)
+        small += int((bad & tiny).sum())
+        if (bad & ~tiny).any():
+            failed.append(f"update of {n}")
+        delta_rel[n] = ((d_card - d_cpu).abs() * ~tiny).max().item() / d_cpu.abs().max().item()
+    tf32_rel = max(abs(runs["card_tf32"][0][k] - v) / max(abs(v), 1e-12)
+                   for k, v in m_card.items() if k.startswith("train/"))
+    n_el = sum(p.numel() for p in base.parameters())
+
+    def summary(rel):
+        by = {}
+        for n, r in rel.items():
+            by.setdefault(n.split(".")[0], []).append(r)
+        return {g: {"max": max(v), "median": float(np.median(v)),
+                    "over_1e-3": sum(r > 1e-3 for r in v), "n": len(v)} for g, v in by.items()}
+
+    worst_g = sorted(grad_rel.items(), key=lambda kv: -kv[1])[:8]
+    worst_d = sorted(delta_rel.items(), key=lambda kv: -kv[1])[:8]
+    log(f"[train-vs-cpu] narrow step ({NARROW_OVERRIDES}, batch 2 x {NARROW_T}), TF32 off: "
+        f"losses max rel {max(loss_rel.values()):.3e} ({max(loss_rel, key=loss_rel.get)})")
+    log(f"[train-vs-cpu] gradients, max|d| / max|g_cpu| per tensor by group: "
+        f"{summary(grad_rel)}; worst {worst_g}")
+    log(f"[train-vs-cpu] updates, per tensor (small-gradient elements aside, {small} "
+        f"of {n_el} past 1e-3): {summary(delta_rel)}; worst {worst_d}")
+    log(f"[train-vs-cpu] card TF32 on vs off: losses max rel {tf32_rel:.3e}")
+    if not max(loss_rel.values()) <= 1e-5 or small > 1e-2 * n_el or failed:
+        raise AssertionError(f"card vs CPU step beyond its bounds: losses "
+                             f"{max(loss_rel.values())}, small {small}, {failed[:8]}")
+    return {"loss_rel": max(loss_rel.values()), "grad_rel": summary(grad_rel),
+            "update_rel": summary(delta_rel), "small_gradient_elements": small,
+            "elements": n_el, "tf32_loss_rel": tf32_rel}
+
+
+def phase_trained_checkpoint(ckpt: str):
+    """8c: load_model on the trainer's checkpoint (EMA applied, weight norm
+    folded) and enhance on the card through the kernel against the unfused
+    chain: <= 1e-4, 94 launches."""
+    from open_universe_tpu_torch.inference.model_loader import load_model
+
+    model = load_model(ckpt, device=DEVICE)
+    t = int(CLIP_S * FS)
+    g = torch.Generator(device=DEVICE).manual_seed(41)
+    mix = torch.randn(2, t, generator=g, device=DEVICE) * 0.05
+    noise = noise_draws(model, 2, t, seed=42)
+    out, counts = counted_enhance(model, mix, noise)
+    check_path("trained", counts, WIDTH_LENGTHS, F32, out, t)
+    diff = (out - unfused_enhance(model, mix, noise)).abs().max().item()
+    log(f"[trained] load_model({os.path.basename(ckpt)}) -> enhance on the card: "
+        f"max|kernel - unfused| = {diff:.3e} (bound 1e-4)")
+    if not diff <= 1e-4:
+        raise AssertionError(f"trained checkpoint: kernel and unfused differ by {diff}")
+    return {"launches": by_entry(counts), "max_abs_diff": diff}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1075,6 +1436,8 @@ def main() -> int:
     lap("2 kernel vs plain")
     model, counts, counts_bf16, path_diff = phase_main_path()
     lap("3 main path")
+    step0 = phase_step0(model)
+    lap("3d step 0")
     hz24, shapes_24k = phase_24k()
     lap("3c 24 kHz")
     main_counts = {**counts, **counts_bf16}  # keys differ by route
@@ -1093,6 +1456,14 @@ def main() -> int:
     lap("6 serving")
     cli, cli_launches = phase_cli()
     lap("7 cli")
+    tf32 = phase_tf32_inference()
+    lap("7b tf32")
+    training, ckpt = phase_training()
+    lap("8a training")
+    training["card_vs_cpu"] = phase_train_step_vs_cpu()
+    lap("8b card vs cpu")
+    trained = phase_trained_checkpoint(ckpt)
+    lap("8c trained checkpoint")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     def cli_entry(entry):
@@ -1154,6 +1525,11 @@ def main() -> int:
         "profile": profiled,
         # launches by the enhance CLI's runs of phase 7
         "cli_launches": cli_entry("fused_conv_chain"),
+        # phase 3d: what the kernel refuses runs unfused; phase 7b: cuDNN TF32
+        "step0": step0, "tf32_inference": tf32,
+        # phase 8: the training entry point (no launch in its steps; the
+        # kernel has no backward) and its checkpoint enhanced through the kernel
+        "training": training, "trained_checkpoint_enhance": trained,
     }, {
         "name": "fused_conv_chain_rows",
         "route": "cuda",

@@ -1,6 +1,7 @@
 """open-universe-tpu-torch: the PyTorch/CUDA port of open-universe-tpu.
 
-UNIVERSE / UNIVERSE++ speech enhancement in PyTorch, with the JAX package's
+UNIVERSE / UNIVERSE++ speech enhancement and UNIVERSE++ training in
+PyTorch, with the JAX package's
 Pallas kernel rewritten as a hand-written CUDA kernel for Hopper (sm_90a).
 The port imports nothing of JAX or of ``open_universe_tpu``.  Entry points
 run on CUDA unless the caller passes ``device="cpu"``.
@@ -8,7 +9,7 @@ run on CUDA unless the caller passes ``device="cpu"``.
 __version__ = "0.1.0"
 
 _SUBMODULES = ("bin", "configs", "data", "inference", "models", "native", "nn",
-               "ops", "utils")
+               "ops", "train", "utils")
 
 
 def __getattr__(name):

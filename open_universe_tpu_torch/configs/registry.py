@@ -1,10 +1,12 @@
-"""``_target_`` -> class map for model configs (the port's own copy of the
-JAX package's ``configs/registry.py``, model targets only).
+"""``_target_`` -> class map for configs (the port's own copy of the JAX
+package's ``configs/registry.py``: the model and data targets).
 
 Both the reference's ``open_universe.`` names (so published ``config.yaml``
 files load unchanged) and ``open_universe_tpu.`` names resolve.  A factory
 takes the node's keys and builds its own children.  A target the port lacks
-raises ``KeyError`` with its name.
+raises ``KeyError`` with its name.  ``instantiate`` builds a model for
+inference, without its training nodes; ``instantiate_trainable`` builds a
+UNIVERSE++ for the trainer, with them (and so with its discriminators).
 """
 from __future__ import annotations
 
@@ -54,14 +56,20 @@ def build_conditioner_network(**kw):
                               **kw)
 
 
-def _universe_kwargs(kw: dict) -> dict:
-    """The sampler's arguments.  The training-only keys are dropped after
-    the check the JAX package makes of them: the score loss is MSE."""
+def _universe_kwargs(kw: dict, train: bool = False) -> dict:
+    """The model's arguments.  The training-only keys are dropped, unless
+    ``train``, after the check the JAX package makes of them: the score loss
+    is MSE."""
     losses = kw.get("losses") or {}
     sl = losses.get("score_loss")
     if sl and sl.get("_target_", "").rsplit(".", 1)[-1] != "MSELoss":
         raise NotImplementedError(f"score_loss {sl} not supported (MSE only)")
-    out = {k: v for k, v in kw.items() if k not in _TRAINING_ONLY}
+    out = {k: v for k, v in kw.items() if train or k not in _TRAINING_ONLY}
+    if train:
+        if "with_noise_target" in out and out.pop("with_noise_target"):
+            raise NotImplementedError("with_noise_target is a plain UNIVERSE loss; "
+                                      "its training is not ported")
+        out["losses"] = {k: v for k, v in losses.items() if k != "score_loss"}
     out["score_model"] = instantiate(kw.get("score_model"))
     out["condition_model"] = instantiate(kw.get("condition_model"))
     if kw.get("transform"):
@@ -77,14 +85,26 @@ def build_universe(**kw):
 
 
 @register("networks.universe.UniverseGAN")
-def build_universe_gan(**kw):
+def build_universe_gan(train: bool = False, **kw):
     from ..models.universe_gan import UniverseGAN
 
     losses = kw.get("losses") or {}
     return UniverseGAN(
         use_signal_decoupling=bool(losses.get("use_signal_decoupling", False)),
         signal_decoupling_act=losses.get("signal_decoupling_act"),
-        **_universe_kwargs(kw))
+        **_universe_kwargs(kw, train=train))
+
+
+def instantiate_trainable(cfg: dict):
+    """The UNIVERSE++ model of a training config, with its training nodes
+    (losses, training, validation, optimizer, scheduler, grad_clipper).  The
+    plain UNIVERSE and LoRA are not trained by the port (ROADMAP queue 1)."""
+    target = cfg.get("_target_", "") if isinstance(cfg, dict) else ""
+    if _REGISTRY.get(target) is not build_universe_gan:
+        raise NotImplementedError(f"the port trains UniverseGAN only, not {target!r} "
+                                  "(ROADMAP queue 1)")
+    return build_universe_gan(train=True, **{k: v for k, v in cfg.items()
+                                             if k not in _META})
 
 
 @register("layers.dyn_range_comp.IdentityTransform")
@@ -92,3 +112,17 @@ def build_identity_transform(**kw):
     from ..models.universe import IdentityTransform
 
     return IdentityTransform()
+
+
+@register("datasets.NoisyDataset")
+def build_noisy_dataset(**kw):
+    from ..data.dataset import NoisyDataset
+
+    return NoisyDataset(**kw)
+
+
+@register("datasets.DataModule")
+def build_datamodule(**kw):
+    from ..data.dataset import DataModule
+
+    return DataModule(**kw)

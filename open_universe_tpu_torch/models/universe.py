@@ -1,13 +1,14 @@
-"""The UNIVERSE(++) diffusion model: the sampler (JAX package
-``models/universe.py``).
+"""The UNIVERSE(++) diffusion model: the sampler and the time sampling of
+training (JAX package ``models/universe.py``).
 
 ``Universe.enhance`` runs the conditioner once and the score network
 ``n_steps`` times (EDM fast path, or the generic score path), in inference
 scope and without autograd, so eligible ConvBlocks take the fused kernel.
 It takes every argument of the JAX package's ``enhance`` but ``packed``:
 ensembles (mean, median, signal_median), warm start, ``use_aux_signal`` and
-the fake-score probe (``target``).  Not ported yet: non-identity transforms
-and the training losses.
+the fake-score probe (``target``).  ``sample_sigma`` draws training's
+(sigma, time) in all six modes.  Not ported yet: non-identity transforms and
+the MDN training losses of the plain UNIVERSE.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from torch import nn
 
 from ..ops import kernels
 from ..utils.norm import normalize_batch
+from ..utils.random import center_truncated_normal
 from ..utils.stats import signal_median
 from .condition import ConditionerNetwork
 from .score import ScoreNetwork
@@ -49,7 +51,16 @@ class Universe(nn.Module):
                  diffusion: Optional[dict] = None,
                  normalization_kwargs: Optional[dict] = None,
                  edm: Optional[dict] = None,
-                 transform: Optional[nn.Module] = None):
+                 transform: Optional[nn.Module] = None,
+                 losses: Optional[dict] = None,
+                 training: Optional[dict] = None,
+                 validation: Optional[dict] = None,
+                 optimizer: Optional[dict] = None,
+                 scheduler: Optional[dict] = None,
+                 grad_clipper: Optional[dict] = None,
+                 detach_cond: bool = False):
+        """The training nodes (losses .. grad_clipper) of a config are kept
+        as dicts for the trainer; a model built for inference has none."""
         super().__init__()
         if transform is not None and not isinstance(transform, IdentityTransform):
             raise NotImplementedError(
@@ -67,6 +78,14 @@ class Universe(nn.Module):
         self.edm_kwargs = _cfg(edm) if edm else {}
         self.n_channels = self.score_model.n_channels
         self.tot_ds = math.prod(self.score_model.rate_factors)
+        self.detach_cond = detach_cond
+        self.losses_kwargs = _cfg(losses)
+        self.train_kwargs = _cfg(training, audio_len=2.0, time_sampling="time_uniform",
+                                 dynamic_mixing=False, ema_decay=0.999)
+        self.val_kwargs = _cfg(validation)
+        self.opt_kwargs = optimizer
+        self.schedule_kwargs = scheduler
+        self.grad_clip_kwargs = grad_clipper
 
     def model_param_keys(self):
         """Sub-modules whose parameters a checkpoint's EMA shadow covers, in
@@ -117,6 +136,51 @@ class Universe(nn.Module):
                                    w["noise"] * sigma, cond)
         speech_est = w["skip"][:, None, None] * x + w["out"][:, None, None] * net_out
         return (speech_est - x) / (sigma[:, None, None] ** 2)
+
+    # ----------------------------------------------------------- time sampling
+    def sample_sigma(self, batch_size: int, time_sampling: str = "time_uniform",
+                     t_min: float = 0.0, t_max: float = 1.0,
+                     generator: Optional[torch.Generator] = None,
+                     u: Optional[torch.Tensor] = None, device=None):
+        """(sigma, time), each (batch_size,) float32, in one of the six
+        reference modes (JAX ``Universe.sample_sigma``).  Every mode maps one
+        uniform draw per row, ``u`` in [0, 1), drawn from ``generator`` or
+        given (JAX's ``uniform(key, (B,))`` gives JAX's values).  ``adaptive``
+        runs without the validation histogram only, as uniform time on
+        [0, 1): the histogram comes with validation, which is not ported."""
+        if u is None:
+            u = torch.rand(batch_size, generator=generator, device=device)
+        u = torch.as_tensor(u, dtype=torch.float32, device=device)
+        s_min = self.diff_kwargs["sigma_min"]
+        s_max = self.diff_kwargs["sigma_max"]
+        time = (t_max - t_min) * u + t_min
+        if time_sampling == "time_uniform":
+            pass
+        elif time_sampling == "adaptive":
+            time = u
+        elif time_sampling == "sigma_linear":
+            return (s_max - s_min) * time + s_min, time
+        elif time_sampling == "diffsym":
+            sigma = s_max + s_min - ((s_max - s_min) * time + s_min)
+            num = torch.log10((s_max + s_min - sigma) / s_min)
+            time = 1.0 - num / math.log10(s_max / s_min)
+        elif time_sampling == "time_discrete":
+            steps = torch.linspace(0.0, 1.0, self.diff_kwargs.get("n_steps", 32),
+                                   device=time.device)
+            time = steps[torch.argmin(torch.abs(steps[:, None] - time[None, :]), dim=0)]
+        elif time_sampling.startswith("time_normal"):
+            try:
+                alpha = float(time_sampling.split("_")[2])
+            except (IndexError, ValueError):
+                alpha = 0.95
+            time = center_truncated_normal(u, area=alpha, minval=t_min, maxval=t_max)
+        else:
+            raise NotImplementedError(time_sampling)
+        return self.get_std_dev(time), time
+
+    def _cond_train(self, mix_trans: torch.Tensor, mix_wav: torch.Tensor):
+        """The conditioner's training forward: (conditions, y_hat, h)."""
+        return self.condition_model(mix_trans, x_wav=mix_wav)
 
     # ---------------------------------------------------------------- sampler
     def _draws(self, noise, generator, shape, count, device):

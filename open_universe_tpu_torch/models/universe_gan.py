@@ -1,21 +1,40 @@
 """UNIVERSE++ (reference universe_gan.py): the adversarially trained
-UNIVERSE.
+UNIVERSE (JAX package ``models/universe_gan.py``).
 
 For inference it is the ``Universe`` sampler plus the "signal decoupling"
 layer: a snake-activated 3-tap conv that turns the conditioner's auxiliary
 features (B, T, n_channels) into a waveform (B, T, 1), used by ``aux_to_wav``
-(``enhance``'s ``warm_start`` and ``use_aux_signal``).  The reference never
-optimises that layer, so a checkpoint's EMA shadow of it equals its raw
-value; the loader reads both like any other parameter.  Not ported: the GAN
-losses (MPD/MRD discriminators, mel L1, feature matching).
+(``enhance``'s ``warm_start`` and ``use_aux_signal``).
+
+Built with its ``losses`` node (``configs/registry.py::instantiate_trainable``)
+it also holds the MPD and MRD discriminators (``loss_mpd``, ``loss_mrd``)
+and computes the three parts of a GAN step (``train/steps.py``):
+
+  generator_forward     one forward of the conditioner and score networks
+  discriminator_losses  LSGAN loss on (target, y_est), y_est detached by the caller
+  generator_losses      score MSE + 45 * mel L1 + the adversarial and
+                        feature-matching terms, gated by ``adversarial_on``
+
+Reference quirk kept: the signal-decoupling layer is applied and
+EMA-shadowed but never optimised (``optimized_param_keys``), so a
+checkpoint's EMA shadow of it equals its raw value.  Not ported: bf16
+training (``training.compute_dtype``), ``remat`` and the auxiliary loss
+module (ROADMAP queue 1).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Dict, Optional
 
 import torch
 
 from ..nn.blocks import PReLUConv
+from .discriminators import (
+    MultiPeriodDiscriminator,
+    MultiResolutionDiscriminator,
+    discriminator_loss,
+    feature_loss,
+    generator_loss,
+)
 from .universe import Universe
 
 
@@ -30,6 +49,21 @@ class UniverseGAN(Universe):
                 act_type=signal_decoupling_act)
         else:
             self.signal_decoupling_layer = None
+        if kwargs.get("losses") is not None:
+            self.init_losses()
+
+    def init_losses(self):
+        lk = self.losses_kwargs
+        self.loss_mpd = MultiPeriodDiscriminator(lk.get("multi_period_discriminator", {}))
+        self.loss_mrd = MultiResolutionDiscriminator(
+            lk.get("multi_resolution_discriminator", {}))
+        self.disc_freeze_step = lk.get("disc_freeze_step", 0)
+        for key, what in ((lk.get("aux_loss") or lk.get("aux_loss_module"),
+                           "the auxiliary loss module"),
+                          (self.train_kwargs.get("compute_dtype"), "bf16 training"),
+                          (self.train_kwargs.get("remat"), "remat")):
+            if key:
+                raise NotImplementedError(f"{what} is not ported (ROADMAP queue 1)")
 
     def model_param_keys(self):
         keys = ("score_model", "condition_model")
@@ -37,7 +71,86 @@ class UniverseGAN(Universe):
             keys += ("signal_decoupling_layer",)
         return keys
 
+    def optimized_param_keys(self):
+        """The generator sub-modules the optimizer updates: the reference's
+        ``configure_optimizers`` leaves out the signal-decoupling layer."""
+        return ("score_model", "condition_model")
+
+    def disc_param_keys(self):
+        return ("loss_mpd", "loss_mrd")
+
     def aux_to_wav(self, y_aux: torch.Tensor) -> torch.Tensor:
         if self.signal_decoupling_layer is not None:
             return self.signal_decoupling_layer(y_aux)
         return y_aux
+
+    # --------------------------------------------------------------- GAN parts
+    def generator_forward(self, mix, target, target_original,
+                          generator: Optional[torch.Generator] = None,
+                          u: Optional[torch.Tensor] = None,
+                          z: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+        """One forward of the generator networks on normalised (B, T, 1)
+        inputs, with autograd's graph kept for the generator's backward.
+        sigma comes from uniform draws ``u`` and the score's noise is ``z``
+        (B, T, 1): both drawn from ``generator`` unless given."""
+        sigma, time = self.sample_sigma(mix.shape[0], self.train_kwargs["time_sampling"],
+                                        generator=generator, u=u, device=mix.device)
+        # the transform is the identity (the only one ported)
+        if z is None:
+            z = torch.randn(target.shape, generator=generator, device=mix.device)
+        z = torch.as_tensor(z, dtype=target.dtype, device=mix.device)
+        x_t = target + sigma[:, None, None] * z
+
+        cond, y_est, _ = self._cond_train(mix, mix)
+        if self.detach_cond:
+            cond = [c.detach() for c in cond]
+        score = self.score(x_t, sigma, cond)
+        y_est = self.aux_to_wav(y_est)
+        mel = self.condition_model.input_mel.compute_mel_spec
+        return {"y_est": y_est, "score": score, "sigma": sigma, "z": z,
+                "mel_y_est": mel(y_est), "mel_target": mel(target_original),
+                "time": time}
+
+    def discriminator_losses(self, y_est, target_original):
+        """LSGAN loss of both discriminators; the caller detaches y_est."""
+        y_df_r, y_df_g, _, _ = self.loss_mpd(target_original, y_est)
+        loss_f, _, _ = discriminator_loss(y_df_r, y_df_g)
+        y_ds_r, y_ds_g, _, _ = self.loss_mrd(target_original, y_est)
+        loss_s, _, _ = discriminator_loss(y_ds_r, y_ds_g)
+        loss = loss_f + loss_s
+        return loss, {"train/loss_disc": loss, "train/loss_mpd": loss_f,
+                      "train/loss_mrd": loss_s}
+
+    def generator_losses(self, gen_out: Dict[str, Any], target_original,
+                         adversarial_on: bool, adversarial: bool = True):
+        """Score MSE + weighted mel L1 + the adversarial and feature terms.
+        ``adversarial`` False leaves the discriminators out entirely (the
+        disc-frozen step); ``adversarial_on`` False computes the terms but
+        leaves them out of the loss."""
+        w = self.losses_kwargs.get("weights", {})
+        sigma = gen_out["sigma"]
+        l_score = torch.mean(torch.square(sigma[:, None, None] * gen_out["score"]
+                                          + gen_out["z"]))
+        loss_mel = torch.mean(torch.abs(gen_out["mel_y_est"] - gen_out["mel_target"]))
+        zero = torch.zeros((), device=l_score.device)
+        if adversarial:
+            y_est = gen_out["y_est"]
+            y_df_r, y_df_g, fmap_f_r, fmap_f_g = self.loss_mpd(target_original, y_est)
+            loss_fm_f = feature_loss(fmap_f_r, fmap_f_g)
+            loss_gen_f, _ = generator_loss(y_df_g)
+            y_ds_r, y_ds_g, fmap_s_r, fmap_s_g = self.loss_mrd(target_original, y_est)
+            loss_fm_s = feature_loss(fmap_s_r, fmap_s_g)
+            loss_gen_s, _ = generator_loss(y_ds_g)
+        else:
+            loss_fm_f = loss_gen_f = loss_fm_s = loss_gen_s = zero
+        loss = l_score * w.get("score", 1.0) + loss_mel * w.get("mel_l1", 45.0)
+        if adversarial_on:
+            loss = loss + (loss_gen_s + loss_gen_f + loss_fm_s + loss_fm_f)
+        metrics = {
+            "train/loss_gen": loss, "train/score": l_score,
+            "train/signal_mel": loss_mel, "train/signal_aux": zero,
+            "train/mrd_fm": loss_fm_s, "train/mpd_fm": loss_fm_f,
+            "train/mrd_gen": loss_gen_s, "train/mpd_gen": loss_gen_f,
+            "train/time_mean": torch.mean(gen_out["time"]),
+        }
+        return loss, metrics

@@ -197,11 +197,19 @@ class ConvBlock(nn.Module):
         # kernel-layout weights by dtype, with the parameters they came from
         self._chain_cache = {}
 
-    def _fused_eligible(self) -> bool:
+    def _chain_params(self):
+        return [p for c in (self.conv1, self.conv2, self.conv3)
+                for p in (c.conv.weight, c.conv.bias, c.prelu.weight)]
+
+    def _fused_eligible(self, h: Optional[torch.Tensor] = None) -> bool:
         """The fused kernel takes the plain-PReLU inference configuration:
         kernels enabled, inference (``inference_scope`` or no autograd),
-        folded weights, one PReLU slope per conv, no LinearProj.  There is no
-        width or length gate."""
+        folded weights, one PReLU slope per conv, no LinearProj.  It has no
+        backward, so with autograd on nothing that needs a gradient (``h``
+        or a chain parameter) may reach it.  Given ``h`` on the card, its
+        dtype, width and batch must be ones the kernel takes (the JAX
+        package's ``fused_conv_chain`` returns None for the rest); the plain
+        version a CPU tensor runs takes any."""
         if not kernels.enabled() or not kernels.in_inference():
             return False
         if self.signal_cond_proj is not None:
@@ -211,6 +219,14 @@ class ConvBlock(nn.Module):
                 return False
             if conv.prelu.num_parameters != 1:
                 return False
+        if torch.is_grad_enabled() and (
+                (h is not None and h.requires_grad)
+                or any(p.requires_grad for p in self._chain_params())):
+            return False
+        if h is not None and h.device.type == "cuda":
+            b, t, c = h.shape
+            return (h.dtype in conv_block.ROUTES and c in conv_block.WIDTHS
+                    and 1 <= b <= 65535 and t >= 1)
         return True
 
     def _chain_args(self, dtype) -> Tuple[torch.Tensor, ...]:
@@ -218,8 +234,7 @@ class ConvBlock(nn.Module):
         the three convs in ``dtype``, and their PReLU slopes in float32,
         rounded through ``dtype`` as the networks' parameters are.  Made once
         per dtype, and again only when a parameter is replaced or written."""
-        params = [p for c in (self.conv1, self.conv2, self.conv3)
-                  for p in (c.conv.weight, c.conv.bias, c.prelu.weight)]
+        params = self._chain_params()
         key = tuple((p.data_ptr(), p._version) for p in params)
         cached = self._chain_cache.get(dtype)
         if cached is None or cached[0] != key:
@@ -251,7 +266,7 @@ class ConvBlock(nn.Module):
                 raise ValueError("residual input not allowed for down blocks")
             h = (h + res) * SQRT_HALF
 
-        if self._fused_eligible():
+        if self._fused_eligible(h):
             h = h.contiguous()
             nc = None if noise_cond is None else noise_cond.contiguous()
             ic = None if input_cond is None else input_cond.contiguous()

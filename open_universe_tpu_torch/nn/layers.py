@@ -1,6 +1,7 @@
-"""Leaf layers: Conv1d, ConvTranspose1d, Linear, PReLU, GRU.
+"""Leaf layers: Conv1d, ConvTranspose1d, Linear, Conv2d, PReLU, GRU.
 
-Data is (batch, time, channels) as in the JAX package; parameters are in
+Data is (batch, time, channels) as in the JAX package (``Conv2d``, the
+discriminators' layer, takes NCHW where JAX takes NHWC); parameters are in
 PyTorch's layout under the reference ``state_dict`` names, so
 ``utils/convert.py`` maps a JAX param tree onto them leaf by leaf.  With
 ``weight_norm`` a layer holds ``weight_g``/``weight_v`` (torch
@@ -18,9 +19,11 @@ import math
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops import conv as ops_conv
+from ..utils.random import fixed_normal
 
 
 def _uniform(shape, bound: float, generator: torch.Generator) -> torch.Tensor:
@@ -149,6 +152,58 @@ class Linear(_Weighted):
         return ops_conv.linear(x, self.effective_weight(), self.bias)
 
 
+class Conv2d(_Weighted):
+    """2-D conv on NCHW; weight (Cout, Cin, KH, KW), weight_g (Cout, 1, 1, 1).
+
+    ``spectral_norm`` divides the weight by its largest singular value,
+    estimated as the JAX package does on every call: ``sn_power_iters``
+    power iterations on the (Cout, Cin*KH*KW) matrix from JAX's fixed start
+    vector (``utils/random.py::fixed_normal``), the vectors detached, so the
+    gradient flows through sigma's dependence on the weight only.
+    """
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=(1, 1),
+                 padding=(0, 0), bias=True, weight_norm=False,
+                 spectral_norm=False, sn_power_iters=8):
+        super().__init__()
+        pair = (lambda v: (v, v) if isinstance(v, int) else tuple(v))
+        if weight_norm and spectral_norm:
+            raise ValueError("weight_norm and spectral_norm are exclusive")
+        self.in_channels = in_channels
+        self.out_channels = out_channels
+        self.kernel_size = pair(kernel_size)
+        self.stride = pair(stride)
+        self.padding = pair(padding)
+        self.spectral_norm = spectral_norm
+        self.sn_power_iters = sn_power_iters
+        self._make_params((out_channels, in_channels) + self.kernel_size,
+                          out_channels, bias, weight_norm)
+
+    def seed_parameters(self, generator: torch.Generator):
+        kh, kw = self.kernel_size
+        self._seed(generator, self.in_channels * kh * kw)
+
+    def effective_weight(self) -> torch.Tensor:
+        w = super().effective_weight()
+        if not self.spectral_norm:
+            return w
+        mat = w.reshape(w.shape[0], -1).float()
+        with torch.no_grad():
+            u = fixed_normal(mat.shape[0], device=w.device)
+            for _ in range(self.sn_power_iters):
+                v = mat.T @ u
+                v = v / torch.clamp(torch.linalg.vector_norm(v), min=1e-12)
+                u = mat @ v
+                u = u / torch.clamp(torch.linalg.vector_norm(u), min=1e-12)
+        sigma = u @ (mat @ v)
+        return w / torch.clamp(sigma, min=1e-12).to(w.dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv2d(x, self.effective_weight().to(x.dtype), b,
+                        stride=self.stride, padding=self.padding)
+
+
 class PReLU(nn.Module):
     """torch.nn.PReLU: one shared slope by default, init 0.25; slopes run
     along the last (channel) axis."""
@@ -187,11 +242,14 @@ class GRU(nn.GRU):
             p.copy_(_uniform(p.shape, bound, generator))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (B, T, In) -> (B, T, H * n_dir)."""
+        """x: (B, T, In) -> (B, T, H * n_dir).  cuDNN's backward needs the
+        forward in training mode, which is taken only where a backward can
+        follow."""
         n_dir = 2 if self.bidirectional else 1
         weights = [w.to(x.dtype) for w in self._flat_weights]
         h0 = x.new_zeros(self.num_layers * n_dir, x.shape[0], self.hidden_size)
-        out, _ = torch.gru(x, h0, weights, True, self.num_layers, 0.0, False,
+        train = self.training and torch.is_grad_enabled()
+        out, _ = torch.gru(x, h0, weights, True, self.num_layers, 0.0, train,
                            self.bidirectional, True)
         return out
 

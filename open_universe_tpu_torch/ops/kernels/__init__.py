@@ -5,7 +5,8 @@ default: an eligible call on a CUDA tensor launches the kernel, the same call
 on a CPU tensor runs the kernel's plain PyTorch version.  ``enable(False)``
 forces the unfused module chain everywhere.  The kernels have no backward, so
 they engage only under ``inference_scope`` (entered by ``Universe.enhance``)
-or while autograd is off (``torch.no_grad()``).
+or while autograd is off (``torch.no_grad()``), and with autograd on only
+where nothing they would compute needs a gradient (``ConvBlock._fused_eligible``).
 """
 import torch
 

@@ -1,0 +1,89 @@
+"""Training entry point of the port (the JAX package's root ``train.py``).
+
+    python -m open_universe_tpu_torch.train experiment=universepp_vb_16k \\
+        [key=value ...] [device=cpu]
+
+Composes ``config/`` (defaults, the experiment overlay, dotlist overrides,
+``${...}`` interpolations), seeds numpy, ``random`` and torch, builds the
+datamodule and the UNIVERSE++ model, and fits.  The run directory is
+``<path.exp_root>/<experiment>/<datetime>[_overrides]``; its checkpoints
+load with ``inference/model_loader.py::load_model``.  It runs on CUDA unless
+``device=cpu`` (or another device) is given, and raises without a GPU.
+"""
+import argparse
+import datetime
+import logging
+import random
+import sys
+from pathlib import Path
+
+log = logging.getLogger("open_universe_tpu_torch.train")
+
+
+def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    parser = argparse.ArgumentParser(
+        description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("overrides", nargs="*",
+                        help="group=choice, a.b=value, or device=<torch device>")
+    parser.add_argument("--config-dir",
+                        default=str(Path(__file__).resolve().parents[2] / "config"))
+    args = parser.parse_args(argv)
+    device = None
+    overrides = []
+    for ov in args.overrides:
+        if ov.startswith("device="):
+            device = ov.partition("=")[2]
+        else:
+            overrides.append(ov)
+
+    import numpy as np
+    import torch
+
+    from ..configs.registry import instantiate, instantiate_trainable
+    from ..configs.resolve import compose
+    from ..utils.device import resolve_device
+    from .trainer import Trainer
+
+    device = resolve_device(device)
+    cfg = compose(args.config_dir, overrides)
+    experiment = cfg.get("_choices_", {}).get("experiment", "default")
+    if cfg.get("ckpt_path"):
+        raise NotImplementedError("resuming (ckpt_path) is not ported (ROADMAP queue 1)")
+    if cfg.get("test", False):
+        raise NotImplementedError("test needs the metrics, not ported (ROADMAP queue 1)")
+
+    seed = cfg.get("seed", 0)
+    np.random.seed(seed)
+    random.seed(seed)
+    torch.manual_seed(seed)
+
+    dm = instantiate(cfg["datamodule"])
+    model = instantiate_trainable(cfg["model"])
+
+    ov_tag = "_".join(o.replace("/", ".") for o in overrides
+                      if not o.startswith("experiment="))[:128]
+    run_name = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
+    if ov_tag:
+        run_name += "_" + ov_tag
+    run_dir = Path(cfg.get("path", {}).get("exp_root", "exp")) / experiment / run_name
+    log.info("run dir: %s, device %s", run_dir, device)
+
+    tcfg = cfg.get("trainer", {})
+    trainer = Trainer(
+        model, dm, run_dir,
+        max_steps=tcfg.get("max_steps", 600000),
+        val_check_interval=tcfg.get("val_check_interval", 5000),
+        checkpoint_every=tcfg.get("checkpoint_every"),
+        log_every=tcfg.get("log_every", 25),
+        seed=seed, device=device,
+        config={k: v for k, v in cfg.items() if not k.startswith("_")})
+    if cfg.get("train", True):
+        trainer.fit()
+    return trainer
+
+
+if __name__ == "__main__":
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    main()

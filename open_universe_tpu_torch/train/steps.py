@@ -1,0 +1,142 @@
+"""The UNIVERSE++ GAN training step (JAX package
+``train/steps.py::make_gan_train_step``), in the reference's order:
+
+1. one generator forward, its autograd graph kept;
+2. the discriminators' LSGAN loss on the detached ``y_est``, their
+   gradients, clipped per sub-tree (mpd, then mrd), and their update
+   (held back while ``step < disc_freeze_step``);
+3. the generator's losses against the just-updated discriminators, whose
+   parameters take no gradient, backpropagated through the kept graph;
+4. the generator's gradients clipped per sub-tree (the score network, then
+   the conditioner with the signal-decoupling layer), its update, then EMA.
+
+The ``disc_frozen`` variant, for the steps before ``disc_freeze_step``,
+leaves the discriminators out entirely.  With ``training.nan_guard`` a step
+whose losses or gradient norms are not finite is rolled back: parameters,
+optimizer states and EMA stay as they were, the step count moves on, and
+``train/update_skipped`` is 1.
+
+The gradients of the last step stay in each parameter's ``.grad`` (after
+clipping) until the next step begins.
+"""
+from __future__ import annotations
+
+import copy
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from ..models.universe_gan import UniverseGAN
+from .ema import EMA
+from .optim import clip_by_norm_, set_lr
+
+
+def _params(model, keys):
+    return [p for k in keys for p in getattr(model, k).parameters()]
+
+
+class GANTrainStep:
+    """Applies GAN steps to ``model`` in place.
+
+    opt_gen updates the parameters of ``model.optimized_param_keys()``,
+    opt_disc those of ``model.disc_param_keys()``; lr_gen / lr_disc map each
+    optimizer's count of applied updates to its learning rate.  ``step``,
+    ``gen_updates`` and ``disc_updates`` count steps and applied updates.
+    """
+
+    def __init__(self, model: UniverseGAN, opt_gen: torch.optim.Optimizer,
+                 opt_disc: torch.optim.Optimizer, lr_gen: Callable[[int], float],
+                 lr_disc: Callable[[int], float], ema: Optional[EMA] = None,
+                 grad_clip_vals: Optional[dict] = None):
+        self.model = model
+        self.opt_gen, self.opt_disc = opt_gen, opt_disc
+        self.lr_gen, self.lr_disc = lr_gen, lr_disc
+        self.ema = ema
+        self.clip_vals = grad_clip_vals or {}
+        self.nan_guard = bool(model.train_kwargs.get("nan_guard", False))
+        self.step = self.gen_updates = self.disc_updates = 0
+
+    def __call__(self, batch: Dict[str, torch.Tensor],
+                 generator: Optional[torch.Generator] = None,
+                 draws: Optional[Dict[str, Any]] = None,
+                 disc_frozen: bool = False) -> Dict[str, torch.Tensor]:
+        """One step on ``batch`` ({"noisy", "clean"}: (B, T, 1) on the
+        model's device).  The random draws come from ``generator`` unless
+        ``draws`` gives them: "u" (B,) uniform draws for sigma, "z" the
+        score's noise (B, T, 1), "perm" the dynamic-mixing permutation.
+        Returns the step's metrics as tensors."""
+        model = self.model
+        draws = draws or {}
+        mpd, mrd = _params(model, ["loss_mpd"]), _params(model, ["loss_mrd"])
+        score_p = _params(model, ["score_model"])
+        cond_p = _params(model, [k for k in model.model_param_keys() if k != "score_model"])
+        for p in mpd + mrd + score_p + cond_p:
+            p.grad = None
+
+        mix, target = batch["noisy"], batch["clean"]
+        target_original = batch.get("clean_original", target)
+        if model.train_kwargs.get("dynamic_mixing", False):
+            perm = draws.get("perm")
+            if perm is None:
+                perm = torch.randperm(mix.shape[0], generator=generator,
+                                      device=mix.device)
+            mix = target + (mix - target)[torch.as_tensor(perm, device=mix.device)]
+        (mix, target, target_original), *_ = model.normalize_batch(
+            (mix, target, target_original))
+
+        gen_out = model.generator_forward(mix, target, target_original, generator,
+                                          u=draws.get("u"), z=draws.get("z"))
+
+        zero = torch.zeros((), device=mix.device)
+        disc_applied, saved = False, None
+        if disc_frozen:
+            l_disc, d_metrics, gnorm_mpd, gnorm_mrd = zero, {}, zero, zero
+            adv_on = False
+        else:
+            l_disc, d_metrics = model.discriminator_losses(gen_out["y_est"].detach(),
+                                                           target_original)
+            l_disc.backward()
+            gnorm_mpd = clip_by_norm_([p.grad for p in mpd], self.clip_vals.get("mpd", 1000.0))
+            gnorm_mrd = clip_by_norm_([p.grad for p in mrd], self.clip_vals.get("mrd", 1000.0))
+            freeze = model.disc_freeze_step
+            adv_on = disc_applied = self.step >= freeze if freeze > 0 else True
+            if disc_applied:
+                if self.nan_guard:
+                    saved = ([p.detach().clone() for p in mpd + mrd],
+                             copy.deepcopy(self.opt_disc.state_dict()))
+                set_lr(self.opt_disc, self.lr_disc(self.disc_updates))
+                self.opt_disc.step()
+
+        for p in mpd + mrd:
+            p.requires_grad_(False)
+        try:
+            l_gen, g_metrics = model.generator_losses(
+                gen_out, target_original, adv_on, adversarial=not disc_frozen)
+        finally:
+            for p in mpd + mrd:
+                p.requires_grad_(True)
+        l_gen.backward()
+        gnorm_score = clip_by_norm_([p.grad for p in score_p], self.clip_vals.get("score", 1000.0))
+        gnorm_cond = clip_by_norm_([p.grad for p in cond_p], self.clip_vals.get("cond", 1000.0))
+
+        metrics = {**d_metrics, **g_metrics, "grad/score": gnorm_score,
+                   "grad/cond": gnorm_cond, "grad/mpd": gnorm_mpd, "grad/mrd": gnorm_mrd}
+        ok = True
+        if self.nan_guard:
+            ok = bool(torch.isfinite(torch.stack(
+                [l_disc, l_gen, gnorm_score, gnorm_cond, gnorm_mpd, gnorm_mrd])).all())
+            metrics["train/update_skipped"] = torch.tensor(0.0 if ok else 1.0)
+        if ok:
+            self.disc_updates += int(disc_applied)
+            set_lr(self.opt_gen, self.lr_gen(self.gen_updates))
+            self.opt_gen.step()
+            self.gen_updates += 1
+            if self.ema is not None:
+                self.ema.update()
+        elif saved is not None:
+            with torch.no_grad():
+                for p, old in zip(mpd + mrd, saved[0]):
+                    p.copy_(old)
+            self.opt_disc.load_state_dict(saved[1])
+        self.step += 1
+        return {k: v.detach() for k, v in metrics.items()}

@@ -7,8 +7,13 @@ names); the leaves differ in layout, by these rules (the JAX package's
 
     Conv1d           (K, Cin/g, Cout)   -> (Cout, Cin/g, K)
     ConvTranspose1d  flipped (K, Cin, Cout) -> (Cin, Cout, K)
+    Conv2d           (KH, KW, Cin, Cout) -> (Cout, Cin, KH, KW)
     Linear, GRU mats                    -> transposed
-    weight_g (N,)                       -> (N, 1, 1) conv, (N, 1) linear
+    weight_g (N,)                       -> (N, 1, 1) conv, (N, 1, 1, 1)
+                                           Conv2d, (N, 1) linear
+
+The GAN's discriminators (``loss_mpd``, ``loss_mrd``) are Conv2d trees and
+carry over like the generator.
 
 ``fold_weight_norm`` replaces every (weight_g, weight_v) pair by its weight,
 as the inference loader does.
@@ -21,7 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..nn.layers import GRU, Conv1d, ConvTranspose1d, Linear, _Weighted
+from ..nn.layers import GRU, Conv1d, Conv2d, ConvTranspose1d, Linear, _Weighted
 
 
 def _to_port_layout(module: nn.Module, leaf: str, v: np.ndarray) -> np.ndarray:
@@ -35,6 +40,11 @@ def _to_port_layout(module: nn.Module, leaf: str, v: np.ndarray) -> np.ndarray:
             return v[::-1].transpose(1, 2, 0)
         if leaf == "weight_g":
             return v.reshape(-1, 1, 1)
+    elif isinstance(module, Conv2d):
+        if leaf in ("weight", "weight_v"):
+            return v.transpose(3, 2, 0, 1)
+        if leaf == "weight_g":
+            return v.reshape(-1, 1, 1, 1)
     elif isinstance(module, Linear):
         if leaf in ("weight", "weight_v"):
             return v.T
@@ -61,7 +71,7 @@ def from_jax_params(model: nn.Module, params: Dict[str, Any]) -> List[str]:
     Every parameter and persistent buffer of ``model`` must be in the tree,
     with the same weight-norm state (fold both sides or neither).  Returns
     the tree's paths that the model has no module for (parts not ported,
-    such as the GAN discriminators).
+    or the discriminators of a GAN built for inference).
     """
     modules = dict(model.named_modules())
     state = model.state_dict(keep_vars=True)

@@ -430,6 +430,10 @@ def test_convblock_dispatch(rng, monkeypatch):
     grad_on = block(_t(h), noise_cond=_t(nc))  # autograd on: no fused path
     assert len(calls) == 1
     with kernels.inference_scope():
+        block(_t(h), noise_cond=_t(nc))  # the parameters need gradients
+        assert len(calls) == 1
+        for p in block.parameters():
+            p.requires_grad_(False)
         block(_t(h), noise_cond=_t(nc))
     assert len(calls) == 2
     for a, b, d in zip(fused, unfused, unfolded):

@@ -426,3 +426,98 @@ def test_universepp_24k_preset_matches_config_and_jax_tree(monkeypatch):
     widths = sorted({m.conv1.out_channels for m in pm.modules()
                      if isinstance(m, pblocks.ConvBlock)})
     assert widths == [48, 96, 192, 384, 768] and pm.tot_ds == 240
+
+
+@pytest.mark.parametrize("norm", ["weight_norm", "spectral_norm"])
+def test_conv2d(rng, norm):
+    """The discriminators' layer: NCHW here, NHWC in JAX; spectral norm with
+    JAX's power iterations from its fixed start vector; <= 1e-5 x max|ref|."""
+    from open_universe_tpu.nn.layers import Conv2d as JaxConv2d
+
+    kw = {norm: True}
+    jmod = JaxConv2d(3, 6, (5, 3), stride=(3, 1), padding=(2, 1), **kw)
+    pmod = players.Conv2d(3, 6, (5, 3), stride=(3, 1), padding=(2, 1), **kw)
+    params = _pair(jmod, pmod)
+    x = _x(rng, 2, 17, 4, 3)  # NHWC
+    ref = np.asarray(jax.jit(jmod.apply)(params, jnp.asarray(x)))
+    with torch.no_grad():
+        out = pmod(torch.from_numpy(x.transpose(0, 3, 1, 2).copy())).permute(0, 2, 3, 1)
+    _close(out, ref, tol=1e-5 * np.abs(ref).max())
+
+
+# ------------------------------------------- fused eligibility (ConvBlock)
+class _CudaLike:
+    """What ``_fused_eligible`` reads of a CUDA tensor: device, dtype, shape."""
+
+    def __init__(self, shape, dtype):
+        self.shape, self.dtype, self.requires_grad = shape, dtype, False
+        self.device = torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.float32, (2, 5, 32)), (torch.bfloat16, (2, 5, 768)),
+    (torch.float16, (2, 5, 32)),   # no route
+    (torch.float32, (2, 5, 40)),   # no width
+    (torch.float32, (2, 5, 16)),
+    (torch.float32, (65536, 1, 32)),  # batch beyond the grid
+])
+def test_fused_eligibility_refuses_what_the_kernel_refuses(dtype, shape):
+    """On the card a block takes the kernel only where the wrapper's checks
+    pass (dtype in ROUTES, C in WIDTHS, 1 <= B <= 65535); elsewhere it runs
+    the unfused chain, as JAX's fused_conv_chain returns None.  A CPU tensor
+    runs the plain version, which takes any of them."""
+    from open_universe_tpu_torch.ops.kernels import conv_block
+
+    c = shape[-1]
+    block = pblocks.ConvBlock(c)
+    fold_weight_norm(block)
+    for p in block.parameters():
+        p.requires_grad_(False)
+    h = torch.zeros(shape, dtype=dtype)
+    chain = block._chain_args(torch.float32)
+    try:
+        conv_block._check(h, tuple(w.to(dtype) if w.dim() > 1 or i % 3 == 1 else w
+                                   for i, w in enumerate(chain)), None, None)
+        kernel_takes = True
+    except (TypeError, ValueError):
+        kernel_takes = False
+    with torch.no_grad():
+        assert block._fused_eligible(_CudaLike(shape, dtype)) is kernel_takes
+        assert block._fused_eligible(h) is True
+    assert kernel_takes is (shape in ((2, 5, 32), (2, 5, 768)) and dtype != torch.float16)
+
+
+@pytest.mark.parametrize("fold", [False, True])
+def test_fused_eligibility_refuses_what_needs_a_gradient(rng, fold):
+    """Inside inference_scope with autograd on, a block whose parameters or
+    input need gradients (a conv without weight norm counts as folded) runs
+    the unfused chain: its weight gradients are non-zero and equal the
+    unfused chain's.  Without anything needing a gradient it takes the
+    kernel's path."""
+    from open_universe_tpu_torch.ops import kernels
+
+    c = 8
+    block = pblocks.ConvBlock(c, weight_norm=not fold)
+    players.init_weights(block, seed=0)
+    h, nc = torch.from_numpy(_x(rng, 2, 21, c)), torch.from_numpy(_x(rng, 2, 2 * c))
+    grads = []
+    for enabled in (True, False):
+        kernels.enable(enabled)
+        try:
+            with kernels.inference_scope():
+                assert block._fused_eligible(h) is False
+                v, _, cond = block(h, noise_cond=nc)
+                (v.sum() + cond.square().sum()).backward()
+        finally:
+            kernels.enable(True)
+        grads.append({n: p.grad.clone() for n, p in block.named_parameters()})
+        block.zero_grad()
+    for n, g in grads[0].items():
+        assert g.abs().max() > 0, n
+        torch.testing.assert_close(g, grads[1][n], rtol=0, atol=0)
+    with kernels.inference_scope():
+        h_in = h.clone().requires_grad_(True)
+        for p in block.parameters():
+            p.requires_grad_(False)
+        assert block._fused_eligible(h_in) is False
+        assert block._fused_eligible(h) is fold

@@ -96,6 +96,20 @@ Phases, each of which raises (exit code != 0) on failure:
    draws, TF32 off, with the bounds of ``phase_train_step_vs_cpu``.
    (c) ``load_model`` on (a)'s checkpoint and ``enhance`` through the
    kernel against the unfused chain (<= 1e-4, 94 launches).
+9. Validation, test and resume.  The training entry point at full width
+   (batch 40 x 2 s, f32, PyTorch's TF32 defaults), 4 steps, validating and
+   writing a checkpoint every 2, then ``test=true``, on synthetic pairs (12
+   val clips of 1.3-6.1 s at batch 1, 8 test clips): the val/* rows of
+   ``metrics.jsonl``, index, best and last.json, test_summary.json; each
+   validation launches the f32 route 5 * 24 per val clip plus 94 per
+   enhanced clip (the first 4), through both entries, the test 94 per
+   clip; one validation through the kernel against the same with the
+   kernels off (TF32 off: score bins <= 1e-4 relative, each enhanced clip
+   <= 1e-4 of its max|ref|), and one on the longest clip traced with
+   ``torch.profiler``; then
+   the run resumed from the step-2 checkpoint holds its state bit for bit
+   and trains to step 4, validating at 4 only.  Logs a validation's wall
+   seconds: the model's passes and the host metrics (PESQ).
 
 The last two lines are a JSON object with one entry per kernel (per-enhance
 sums; each shape's numbers are on the log lines of phases 3c, 4 and 4b; the
@@ -136,7 +150,8 @@ WIDTH_LENGTHS_24K = {48: 48240, 96: 24120, 192: 8040, 384: 1608, 768: 201}
 PARTIAL_T = 1004  # leaves a partial last time tile on every route and width
 F32, BF16 = "f32_tensor_cores_3xtf32", "bf16_tensor_cores"  # conv_block.ROUTES' names
 # ConvBlocks per enhance with 8 steps: 10 per score pass, 14 in the conditioner
-PATH_LAUNCHES = 10 * N_STEPS + 14
+COND_BLOCKS, SCORE_BLOCKS = 14, 10
+PATH_LAUNCHES = SCORE_BLOCKS * N_STEPS + COND_BLOCKS
 PEAK_BYTES_PER_S = 3.35e12
 # f32 runs as three TF32 products per product: a third of the 495 TFLOP/s
 PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
@@ -148,6 +163,14 @@ TRAIN_STEPS = 6
 TRAIN_BATCH = 40
 TRAIN_PAIRS, TRAIN_PAIR_S = 80, 2.5
 TRAIN_OVERRIDES = []  # full width
+# phase 9: validation, test and resume of the entry point at full width:
+# VAL_PAIRS clips of 1.3-6.1 s (batch 1, as the val loader batches), 8 test
+# clips, VAL_TRAIN_PAIRS training pairs for the steps
+VAL_STEPS, VAL_EVERY = 4, 2
+VAL_PAIRS, TEST_PAIRS, VAL_TRAIN_PAIRS = 12, 8, 40
+N_BINS, MAX_ENH = 5, 4  # validation's score-loss bins, enhanced batches
+VAL_KEYS = ("val/score", "val/score_0.00-0.20", "val/score_0.20-0.40", "val/score_0.40-0.60",
+            "val/score_0.60-0.80", "val/score_0.80-1.00", "val/pesq", "val/lsd")
 # phase 8b: one step on the card against the CPU at a narrow width
 NARROW_OVERRIDES = ["model.score_model.n_channels=8", "model.score_model.noise_cond_dim=64",
                     "model.condition_model.n_mels=20",
@@ -1040,49 +1063,54 @@ def busy_ms(intervals) -> float:
     return total / 1e3
 
 
+def device_profile(prefix, fn) -> dict:
+    """Trace fn() with torch.profiler: its wall time, device time by kernel
+    group and under PROFILE_OPS, device busy time and idle share, logged
+    after ``prefix``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        raise RuntimeError("torch.profiler recorded no device time")
+    groups, other = {}, {}
+    for e in events:
+        group, ms = kernel_group(e.name), (e.time_range.end - e.time_range.start) / 1e3
+        groups[group] = groups.get(group, 0.0) + ms
+        if group == "other":
+            other[e.name] = other.get(e.name, 0.0) + ms
+    busy = busy_ms((e.time_range.start, e.time_range.end) for e in events)
+    ops = {row.key: row.device_time_total / 1e3
+           for row in prof.key_averages() if row.key in PROFILE_OPS}
+    log(f"{prefix}: traced wall {wall_ms:.1f} ms, device busy {busy:.1f} ms, idle share "
+        f"{1.0 - busy / wall_ms:.3f}, {len(events)} device kernels")
+    for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log(f"{prefix}   {group:24s} {ms:9.2f} ms")
+    for name, ms in sorted(other.items(), key=lambda kv: -kv[1])[:3]:
+        log(f"{prefix}   other: {name[:90]} {ms:.2f} ms")
+    for op, ms in ops.items():
+        log(f"{prefix}   op {op} (with children) {ms:.2f} ms")
+    return dict(traced_wall_ms=wall_ms, device_busy_ms=busy, idle_share=1.0 - busy / wall_ms,
+                device_kernels=len(events), groups_ms=groups, ops_ms=ops)
+
+
 def phase_profile(model, mix, noise, runs=(("kernel", True), ("unfused", False))):
     """One traced enhance per (name, kernels on) run: device time by kernel
     group and op, device busy time and idle share."""
-    from torch.profiler import ProfilerActivity, profile
-
     from open_universe_tpu_torch.ops import kernels
 
     result = {}
     for name, fused in runs:
         kernels.enable(fused)
         try:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                model.enhance(mix, n_steps=N_STEPS, compute_dtype=torch.bfloat16,
-                              noise=noise)
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) * 1e3
+            result[name] = device_profile(f"[profile] {name}", lambda: model.enhance(
+                mix, n_steps=N_STEPS, compute_dtype=torch.bfloat16, noise=noise))
         finally:
             kernels.enable(True)
-        events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        if not events:
-            raise RuntimeError("torch.profiler recorded no device time")
-        groups = {}
-        for e in events:
-            group = kernel_group(e.name)
-            groups[group] = groups.get(group, 0.0) + (
-                e.time_range.end - e.time_range.start) / 1e3
-        busy = busy_ms((e.time_range.start, e.time_range.end) for e in events)
-        ops = {row.key: row.device_time_total / 1e3
-               for row in prof.key_averages() if row.key in PROFILE_OPS}
-        result[name] = dict(traced_wall_ms=wall_ms, device_busy_ms=busy,
-                            idle_share=1.0 - busy / wall_ms,
-                            device_kernels=len(events), groups_ms=groups,
-                            ops_ms=ops)
-        log(f"[profile] {name}: traced wall {wall_ms:.1f} ms, device busy "
-            f"{busy:.1f} ms, idle share {1.0 - busy / wall_ms:.3f}, "
-            f"{len(events)} device kernels")
-        for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-            log(f"[profile] {name}   {group:24s} {ms:9.2f} ms")
-        for op, ms in ops.items():
-            log(f"[profile] {name}   op {op} (with children) {ms:.2f} ms")
     return result
 
 
@@ -1161,22 +1189,23 @@ def phase_tf32_inference():
     return out
 
 
-def write_pairs(root: str, n: int, seconds: float, seed: int = 0) -> None:
+def write_pairs(root: str, n: int, seconds, seed: int = 0, split: str = "train") -> None:
     """n paired 16 kHz WAVs in the NoisyDataset layout
-    (<root>/train/{noisy,clean}/*.wav): a clean harmonic tone in noise."""
+    (<root>/<split>/{noisy,clean}/*.wav): a clean harmonic tone in noise,
+    each ``seconds`` long (one length, or one per pair)."""
     from open_universe_tpu_torch.data.audio import save_audio
 
     rng = np.random.default_rng(seed)
     for d in ("noisy", "clean"):
-        os.makedirs(os.path.join(root, "train", d), exist_ok=True)
-    t = np.arange(int(seconds * FS)) / FS
-    for i in range(n):
+        os.makedirs(os.path.join(root, split, d), exist_ok=True)
+    for i, sec in enumerate(np.broadcast_to(seconds, (n,))):
+        t = np.arange(int(sec * FS)) / FS
         f0 = rng.uniform(100, 300)
         clean = 0.1 * np.sin(2 * np.pi * f0 * t) * (1 + 0.5 * np.sin(2 * np.pi * 3 * t))
         clean += 0.01 * rng.standard_normal(t.shape)
         noisy = clean + 0.05 * rng.standard_normal(t.shape)
-        save_audio(os.path.join(root, "train", "clean", f"p{i:03d}.wav"), clean[None], FS)
-        save_audio(os.path.join(root, "train", "noisy", f"p{i:03d}.wav"), noisy[None], FS)
+        save_audio(os.path.join(root, split, "clean", f"p{i:03d}.wav"), clean[None], FS)
+        save_audio(os.path.join(root, split, "noisy", f"p{i:03d}.wav"), noisy[None], FS)
 
 
 def config_dir() -> str:
@@ -1413,6 +1442,256 @@ def phase_trained_checkpoint(ckpt: str):
     return {"launches": by_entry(counts), "max_abs_diff": diff}
 
 
+def validation_launches(n_val: int) -> int:
+    """Fused-kernel launches of one validation over n_val batch-1 clips: the
+    conditioner and score network in each of N_BINS score losses per clip,
+    and one enhance (PATH_LAUNCHES) on each of the first MAX_ENH."""
+    return N_BINS * (COND_BLOCKS + SCORE_BLOCKS) * n_val + PATH_LAUNCHES * min(n_val, MAX_ENH)
+
+
+def check_launches(tag, counts, want):
+    """All of ``want`` launches on the f32 route, through both entries."""
+    n = sum(counts.values())
+    log(f"[{tag}] {n} launches {by_entry(counts)} {by_route(counts)} (expected {want})")
+    if n != want or set(by_route(counts)) != {F32} or len(by_entry(counts)) != 2:
+        raise AssertionError(f"{tag}: launched {by_entry(counts)} {by_route(counts)}, "
+                             f"expected {want} on {F32} through both entries")
+
+
+class EstRecorder:
+    """An enh_losses entry that keeps the enhanced batches it is given and
+    scores them with the metric it wraps."""
+
+    def __init__(self, inner):
+        self.inner, self.est = inner, []
+
+    def __call__(self, est, ref):
+        self.est.append(est.detach().clone())
+        return self.inner(est, ref)
+
+
+def _tensors(obj):
+    """The tensors of a nested state, in order, with their paths."""
+    if isinstance(obj, torch.Tensor):
+        yield "", obj
+    elif isinstance(obj, dict):
+        for k in obj:
+            for p, t in _tensors(obj[k]):
+                yield f"/{k}{p}", t
+    elif isinstance(obj, (list, tuple)):
+        for i, v in enumerate(obj):
+            for p, t in _tensors(v):
+                yield f"/{i}{p}", t
+
+
+def same_state(a, b) -> list:
+    """Paths where two nested states differ (tensors bit for bit, the rest
+    by ==)."""
+    ta, tb = dict(_tensors(a)), dict(_tensors(b))
+    bad = sorted(set(ta) ^ set(tb))
+    bad += [p for p in ta if p in tb and not (ta[p].shape == tb[p].shape and torch.equal(
+        ta[p].cpu(), tb[p].cpu()))]
+    return bad
+
+
+def trainer_state(tr) -> dict:
+    """What a checkpoint holds of a trainer, as ``Trainer.save`` lays it out."""
+    from open_universe_tpu_torch.inference.model_loader import ordered_param_names
+
+    step = tr.step_fn
+    sd = tr.model.state_dict()
+    names = ordered_param_names(sd, tr.model.model_param_keys())
+    return {"state_dict": sd, "global_step": step.step,
+            "optimizer_states": [step.opt_gen.state_dict(), step.opt_disc.state_dict()],
+            "updates": [step.gen_updates, step.disc_updates],
+            "ema": [tr.ema.shadow[n] for n in names], "num_updates": tr.ema.num_updates}
+
+
+def phase_validation():
+    """9: the training entry point at full width (universepp_vb_16k, f32,
+    batch 40 x 2 s, PyTorch's TF32 defaults) for VAL_STEPS steps, validating
+    and writing a checkpoint every VAL_EVERY, then test=true; then resumed
+    from the step-2 checkpoint to step 4.  Checks the val/* rows, index,
+    best, last and test_summary.json, the launches of each validation
+    (validation_launches, all f32, both entries) and of the test, the
+    restored state against the checkpoint, and one validation through the
+    kernel against the same with the kernels off (TF32 off): score bins <=
+    1e-4 relative, each enhanced clip <= 1e-4 of its max|ref|."""
+    import glob
+    import shutil
+
+    from open_universe_tpu_torch.ops import kernels
+    from open_universe_tpu_torch.ops.kernels import conv_block
+    from open_universe_tpu_torch.train import trainer as ptrainer
+    from open_universe_tpu_torch.train.__main__ import main as train_main
+
+    tmp = tempfile.mkdtemp()
+    data, exp = os.path.join(tmp, "data"), os.path.join(tmp, "exp")
+    t0 = time.perf_counter()
+    write_pairs(data, VAL_TRAIN_PAIRS, TRAIN_PAIR_S, seed=5)
+    write_pairs(data, VAL_PAIRS, np.linspace(1.3, 6.1, VAL_PAIRS), seed=6, split="val")
+    write_pairs(data, TEST_PAIRS, np.linspace(1.1, 4.6, TEST_PAIRS), seed=7, split="test")
+    log(f"[val] {VAL_TRAIN_PAIRS} train pairs of {TRAIN_PAIR_S} s, {VAL_PAIRS} val pairs of "
+        f"1.3-6.1 s, {TEST_PAIRS} test pairs written in {time.perf_counter() - t0:.1f} s")
+    args = ["experiment=universepp_vb_16k", f"device={DEVICE}",
+            f"datamodule.datasets.vb-train-16k.audio_path={data}",
+            f"datamodule.train.dl_opts.batch_size={TRAIN_BATCH}",
+            f"trainer.val_check_interval={VAL_EVERY}", f"trainer.checkpoint_every={VAL_EVERY}",
+            "trainer.log_every=1", *TRAIN_OVERRIDES]
+
+    # count each validation's and the test's launches and keep their times
+    calls, real_validate, real_test = [], ptrainer.Trainer.validate, ptrainer.Trainer.test
+
+    def counted(real, kind):
+        def run(self, step=None, draws=None):
+            conv_block.launches.clear()
+            t0 = time.perf_counter()
+            out = real(self, step, draws)
+            torch.cuda.synchronize()
+            calls.append({"kind": kind, "step": step, "launches": dict(conv_block.launches),
+                          "wall_s": time.perf_counter() - t0,
+                          "timing": dict(self.val_timing) if kind == "validate" else {}})
+            return out
+        return run
+
+    ptrainer.Trainer.validate = counted(real_validate, "validate")
+    ptrainer.Trainer.test = counted(real_test, "test")
+    tf32_flags(True)
+    try:
+        t0 = time.perf_counter()
+        trainer = train_main(args + [f"trainer.max_steps={VAL_STEPS}", "test=true",
+                                     f"path.exp_root={exp}/first"])
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+    finally:
+        tf32_flags(False)
+        ptrainer.Trainer.validate, ptrainer.Trainer.test = real_validate, real_test
+    (run_dir,) = glob.glob(os.path.join(exp, "first", "universepp_vb_16k", "*"))
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    val_rows = [r for r in rows if "val/score" in r]
+    for r in val_rows:
+        log(f"[val] step {r['step']}: " + ", ".join(f"{k} {r[k]:.4f}" for k in VAL_KEYS)
+            + f"; wall {r['perf/val_wall_s']:.2f} s: model passes {r['perf/val_device_s']:.2f}"
+            f" s (enhance {r['perf/val_enhance_s']:.2f} s), host metrics (PESQ, LSD's "
+            f"copy) {r['perf/val_metrics_s']:.2f} s")
+    if [r["step"] for r in val_rows] != list(range(VAL_EVERY, VAL_STEPS + 1, VAL_EVERY)) or any(
+            not np.isfinite(r[k]) for r in val_rows for k in VAL_KEYS):
+        raise AssertionError(f"validation rows: {val_rows}")
+    ckpt_dir = os.path.join(run_dir, "checkpoints")
+    meta = {}
+    for name in ("index.json", "best.json", "last.json"):
+        with open(os.path.join(ckpt_dir, name)) as f:
+            meta[name] = json.load(f)
+    with open(os.path.join(run_dir, "test_summary.json")) as f:
+        summary = json.load(f)
+    scored = {r["step"]: r["val/pesq"] for r in val_rows}
+    log(f"[val] index {[(e['step'], e['metric'], e['value']) for e in meta['index.json']]}; "
+        f"best step {meta['best.json']['step']}; last step {meta['last.json']['step']}; "
+        f"test summary {summary}")
+    if ([(e["step"], e["value"]) for e in meta["index.json"]] != sorted(scored.items())
+            or meta["best.json"]["value"] != max(scored.values())
+            or meta["last.json"]["step"] != VAL_STEPS or summary.get("number") != TEST_PAIRS
+            or not all(np.isfinite(summary[k]) for k in ("pesq", "lsd"))):
+        raise AssertionError(f"checkpoint metadata or test summary: {meta}, {summary}")
+    want = validation_launches(VAL_PAIRS)
+    for c in calls:
+        check_launches(f"val {c['kind']} @{c['step']}", c["launches"],
+                       want if c["kind"] == "validate" else PATH_LAUNCHES * TEST_PAIRS)
+    if [c["kind"] for c in calls] != ["validate"] * (VAL_STEPS // VAL_EVERY) + ["test"]:
+        raise AssertionError(f"validations and tests run: {[c['kind'] for c in calls]}")
+
+    # one validation through the kernel against the same with the kernels
+    # off: the same folded EMA copy (made anew per call from the same EMA)
+    # and the same generator state (seeded per call), TF32 off
+    recorder = EstRecorder(trainer.enh_losses["val/"])
+    trainer.enh_losses = {"val/": recorder}
+    kern = trainer.validate(VAL_STEPS)
+    kernels.enable(False)
+    try:
+        plain = trainer.validate(VAL_STEPS)
+    finally:
+        kernels.enable(True)
+    n_enh = len(recorder.est) // 2
+    wave = max((a - b).abs().max().item() / b.abs().max().item()
+               for a, b in zip(recorder.est[:n_enh], recorder.est[n_enh:]))
+    score_rel = max(abs(kern[k] - plain[k]) / abs(plain[k]) for k in VAL_KEYS[:6])
+    log("[val] kernel vs kernels off, one validation (TF32 off):")
+    for k in VAL_KEYS:
+        log(f"[val]   {k:22s} kernel {kern[k]:.6f}  off {plain[k]:.6f}  "
+            f"|d| {abs(kern[k] - plain[k]):.3e}")
+    log(f"[val] score bins max relative difference {score_rel:.3e} (bound 1e-4); enhanced "
+        f"clips max|d| / max|ref| {wave:.3e} (bound 1e-4) over {n_enh} clips")
+    if not (score_rel <= 1e-4 and wave <= 1e-4 and n_enh == min(VAL_PAIRS, MAX_ENH)):
+        raise AssertionError(f"validation through the kernel and with it off differ: "
+                             f"scores {score_rel}, waveforms {wave}")
+    # where a validation's time goes: one traced (TF32 off) on its longest
+    # clip (the trace of all 12 holds ~375k device kernels, whose reading
+    # takes minutes)
+    trainer.dm.datasets["val"].file_list = trainer.dm.datasets["val"].file_list[-1:]
+    profiled = device_profile("[val] profile, one 6.1 s clip",
+                              lambda: trainer.validate(VAL_STEPS))
+    del trainer
+    torch.cuda.empty_cache()
+
+    # resume from step 2: the restored state is the checkpoint's, bit for bit
+    ckpt2 = os.path.join(ckpt_dir, f"step_{VAL_EVERY:08d}.ckpt")
+    tf32_flags(True)
+    try:
+        t0 = time.perf_counter()
+        resumed = train_main(args + [f"trainer.max_steps={VAL_STEPS}", f"ckpt_path={ckpt2}",
+                                     "train=false", f"path.exp_root={exp}/resumed"])
+        saved = torch.load(ckpt2, map_location=DEVICE, weights_only=False)
+        restored = trainer_state(resumed)
+        bad = same_state(restored, {
+            "state_dict": saved["state_dict"], "global_step": saved["global_step"],
+            "optimizer_states": saved["optimizer_states"],
+            "updates": [s["updates"] for s in saved["lr_schedulers"]],
+            "ema": saved["ema"]["shadow_params"], "num_updates": saved["ema"]["num_updates"]})
+        bad += [k for k in ("global_step", "num_updates")
+                if restored[k] != (saved[k] if k == "global_step" else saved["ema"][k])]
+        bad += [] if restored["updates"] == [s["updates"] for s in saved["lr_schedulers"]] \
+            else ["updates"]
+        del saved
+        resumed.fit()
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+    finally:
+        tf32_flags(False)
+    (run2,) = glob.glob(os.path.join(exp, "resumed", "universepp_vb_16k", "*"))
+    with open(os.path.join(run2, "metrics.jsonl")) as f:
+        rows2 = [json.loads(line) for line in f]
+    steps2 = [r["step"] for r in rows2 if "train/loss_gen" in r]
+    vals2 = [r["step"] for r in rows2 if "val/score" in r]
+    log(f"[val] resumed from {os.path.basename(ckpt2)}: restored state differs at {bad[:5]} "
+        f"({len(bad)} paths); then steps {steps2}, validations at {vals2}, "
+        f"step {resumed.step_fn.step}")
+    if bad or steps2 != list(range(VAL_EVERY + 1, VAL_STEPS + 1)) or vals2 != [VAL_STEPS] \
+            or not os.path.exists(os.path.join(run2, "checkpoints", f"step_{VAL_STEPS:08d}.ckpt")):
+        raise AssertionError(f"resume: differs at {bad[:8]}, steps {steps2}, validations {vals2}")
+    del resumed
+    torch.cuda.empty_cache()
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    vals = [c for c in calls if c["kind"] == "validate"]
+    timing = {k: float(np.median([c["timing"][k] for c in vals])) for k in vals[0]["timing"]}
+    log(f"[val] {card_line()}: a validation of {VAL_PAIRS} clips takes "
+        f"{timing['perf/val_wall_s']:.2f} s (median of {len(vals)}): model passes "
+        f"{timing['perf/val_device_s']:.2f} s (enhance {timing['perf/val_enhance_s']:.2f} s), "
+        f"host metrics {timing['perf/val_metrics_s']:.2f} s; "
+        f"the test of {TEST_PAIRS} clips {calls[-1]['wall_s']:.2f} s; the first run "
+        f"{first_s:.1f} s, the resumed one {resume_s:.1f} s")
+    return {"val_pairs": VAL_PAIRS, "test_pairs": TEST_PAIRS,
+            "validation_launches": [by_entry(c["launches"]) for c in vals],
+            "test_launches": by_entry(calls[-1]["launches"]),
+            "expected_validation_launches": want, "timing": timing,
+            "validation_wall_s": [c["wall_s"] for c in vals], "test_wall_s": calls[-1]["wall_s"],
+            "kernel_vs_off": {"score_rel": score_rel, "wave_rel": wave,
+                              "kernel": kern, "off": plain},
+            "val_rows": val_rows, "test_summary": summary, "first_run_s": first_s,
+            "resume_s": resume_s, "profile": profiled}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1464,6 +1743,8 @@ def main() -> int:
     lap("8b card vs cpu")
     trained = phase_trained_checkpoint(ckpt)
     lap("8c trained checkpoint")
+    validation = phase_validation()
+    lap("9 validation")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     def cli_entry(entry):
@@ -1530,6 +1811,9 @@ def main() -> int:
         # phase 8: the training entry point (no launch in its steps; the
         # kernel has no backward) and its checkpoint enhanced through the kernel
         "training": training, "trained_checkpoint_enhance": trained,
+        # phase 9: validation and test of the entry point (launches per
+        # validation and per test, both entries), kernel vs kernels off
+        "validation": validation,
     }, {
         "name": "fused_conv_chain_rows",
         "route": "cuda",
@@ -1552,6 +1836,9 @@ def main() -> int:
         "serving": served,
         "cli_launches": cli_entry("fused_conv_chain_rows"),
         "cli": cli,
+        "validation_launches": [v.get("fused_conv_chain_rows", 0)
+                                for v in validation["validation_launches"]],
+        "test_launches": validation["test_launches"].get("fused_conv_chain_rows", 0),
     }]}
     for tag, sh in (("batch 128, 16 kHz", shapes), ("batch 128, 24 kHz", shapes_24k),
                     ("rows, batch 16", rows_shapes)):

@@ -1,5 +1,5 @@
 """``_target_`` -> class map for configs (the port's own copy of the JAX
-package's ``configs/registry.py``: the model and data targets).
+package's ``configs/registry.py``: the model, data and metric targets).
 
 Both the reference's ``open_universe.`` names (so published ``config.yaml``
 files load unchanged) and ``open_universe_tpu.`` names resolve.  A factory
@@ -112,6 +112,13 @@ def build_identity_transform(**kw):
     from ..models.universe import IdentityTransform
 
     return IdentityTransform()
+
+
+@register("metrics.EvalMetrics")
+def build_eval_metrics(**kw):
+    from ..metrics.eval import EvalMetrics
+
+    return EvalMetrics(**kw)
 
 
 @register("datasets.NoisyDataset")

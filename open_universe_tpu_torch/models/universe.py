@@ -7,8 +7,11 @@ scope and without autograd, so eligible ConvBlocks take the fused kernel.
 It takes every argument of the JAX package's ``enhance`` but ``packed``:
 ensembles (mean, median, signal_median), warm start, ``use_aux_signal`` and
 the fake-score probe (``target``).  ``sample_sigma`` draws training's
-(sigma, time) in all six modes.  Not ported yet: non-identity transforms and
-the MDN training losses of the plain UNIVERSE.
+(sigma, time) in all six modes, ``adaptive`` from validation's histogram of
+score losses by time bin, and ``compute_losses(train=False)`` is
+validation's score loss in one time bin.  Not ported yet: non-identity
+transforms and the MDN training losses of the plain UNIVERSE
+(``compute_losses(train=True)``).
 """
 from __future__ import annotations
 
@@ -141,13 +144,21 @@ class Universe(nn.Module):
     def sample_sigma(self, batch_size: int, time_sampling: str = "time_uniform",
                      t_min: float = 0.0, t_max: float = 1.0,
                      generator: Optional[torch.Generator] = None,
-                     u: Optional[torch.Tensor] = None, device=None):
+                     u: Optional[torch.Tensor] = None, device=None,
+                     pr_cum: Optional[torch.Tensor] = None,
+                     bins: Optional[torch.Tensor] = None,
+                     dice: Optional[torch.Tensor] = None):
         """(sigma, time), each (batch_size,) float32, in one of the six
         reference modes (JAX ``Universe.sample_sigma``).  Every mode maps one
         uniform draw per row, ``u`` in [0, 1), drawn from ``generator`` or
-        given (JAX's ``uniform(key, (B,))`` gives JAX's values).  ``adaptive``
-        runs without the validation histogram only, as uniform time on
-        [0, 1): the histogram comes with validation, which is not ported."""
+        given (JAX's ``uniform(key, (B,))`` gives JAX's values).
+
+        ``adaptive`` with the validation histogram (``pr_cum``, the
+        cumulative share of the score loss by time bin, and the bins' edges
+        ``bins``) picks a bin per row by a second uniform draw, ``dice``,
+        and takes ``u`` as the position inside it (JAX's ``_adaptive_time``
+        draws dice from the first half of the key's split and the position
+        from the second); without the histogram it is uniform time."""
         if u is None:
             u = torch.rand(batch_size, generator=generator, device=device)
         u = torch.as_tensor(u, dtype=torch.float32, device=device)
@@ -157,7 +168,8 @@ class Universe(nn.Module):
         if time_sampling == "time_uniform":
             pass
         elif time_sampling == "adaptive":
-            time = u
+            time = u if pr_cum is None or bins is None else self._adaptive_time(
+                u, pr_cum, bins, generator, dice)
         elif time_sampling == "sigma_linear":
             return (s_max - s_min) * time + s_min, time
         elif time_sampling == "diffsym":
@@ -177,6 +189,50 @@ class Universe(nn.Module):
         else:
             raise NotImplementedError(time_sampling)
         return self.get_std_dev(time), time
+
+    @staticmethod
+    def _adaptive_time(u, pr_cum, bins, generator=None, dice=None):
+        """Bin-weighted uniform time from the validation histogram."""
+        pr_cum = torch.as_tensor(pr_cum, dtype=torch.float32, device=u.device)
+        bins = torch.as_tensor(bins, dtype=torch.float32, device=u.device)
+        if dice is None:
+            dice = torch.rand(u.shape, generator=generator, device=u.device)
+        dice = torch.as_tensor(dice, dtype=torch.float32, device=u.device)
+        n_bins = bins.shape[0] - 1
+        # invert the cumulative distribution to pick a bin per sample
+        idx = torch.clamp(torch.searchsorted(pr_cum, dice, right=True) - 1,
+                          0, n_bins - 1)
+        lo, hi = bins[idx], bins[idx + 1]
+        return lo + (hi - lo) * u
+
+    def compute_losses(self, mix: torch.Tensor, target: torch.Tensor,
+                       train: bool = True, time_sampling: str = "time_uniform",
+                       t_min: float = 0.0, t_max: float = 1.0,
+                       generator: Optional[torch.Generator] = None,
+                       u: Optional[torch.Tensor] = None,
+                       z: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The score loss mean((sigma score(x_t) + z)^2) on amplitude-
+        normalised (B, T, C) inputs, sigma drawn with ``time_sampling`` in
+        [t_min, t_max] (JAX ``Universe.compute_losses(train=False)``, the
+        loss validation bins by time).  The draws (sigma's uniform ``u``,
+        the noise ``z`` shaped like ``target``) come from ``generator``
+        unless given.  ``train=True``, the MDN training losses of the plain
+        UNIVERSE, is not ported (ROADMAP queue 1 item 12)."""
+        if train:
+            raise NotImplementedError("the plain UNIVERSE's training losses "
+                                      "are not ported (ROADMAP queue 1 item 12)")
+        # the transform is the identity (the only one ported)
+        sigma, _ = self.sample_sigma(mix.shape[0], time_sampling, t_min, t_max,
+                                     generator=generator, u=u, device=mix.device)
+        if z is None:
+            z = torch.randn(target.shape, generator=generator, device=target.device)
+        z = torch.as_tensor(z, dtype=target.dtype, device=target.device)
+        x_t = target + sigma[:, None, None] * z
+        cond, _, _ = self._cond_train(mix, mix)
+        if self.detach_cond:
+            cond = [c.detach() for c in cond]
+        score = self.score(x_t, sigma, cond)
+        return torch.mean(torch.square(sigma[:, None, None] * score.float() + z.float()))
 
     def _cond_train(self, mix_trans: torch.Tensor, mix_wav: torch.Tensor):
         """The conditioner's training forward: (conditions, y_hat, h)."""

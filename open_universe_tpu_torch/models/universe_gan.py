@@ -88,13 +88,18 @@ class UniverseGAN(Universe):
     def generator_forward(self, mix, target, target_original,
                           generator: Optional[torch.Generator] = None,
                           u: Optional[torch.Tensor] = None,
-                          z: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+                          z: Optional[torch.Tensor] = None,
+                          pr_cum=None, bins=None,
+                          dice: Optional[torch.Tensor] = None) -> Dict[str, Any]:
         """One forward of the generator networks on normalised (B, T, 1)
         inputs, with autograd's graph kept for the generator's backward.
-        sigma comes from uniform draws ``u`` and the score's noise is ``z``
-        (B, T, 1): both drawn from ``generator`` unless given."""
+        sigma comes from uniform draws ``u`` (and, in ``adaptive`` time
+        sampling with validation's histogram ``pr_cum``/``bins``, the bin
+        draws ``dice``) and the score's noise is ``z`` (B, T, 1): all drawn
+        from ``generator`` unless given."""
         sigma, time = self.sample_sigma(mix.shape[0], self.train_kwargs["time_sampling"],
-                                        generator=generator, u=u, device=mix.device)
+                                        generator=generator, u=u, device=mix.device,
+                                        pr_cum=pr_cum, bins=bins, dice=dice)
         # the transform is the identity (the only one ported)
         if z is None:
             z = torch.randn(target.shape, generator=generator, device=mix.device)

@@ -5,7 +5,11 @@
 
 Composes ``config/`` (defaults, the experiment overlay, dotlist overrides,
 ``${...}`` interpolations), seeds numpy, ``random`` and torch, builds the
-datamodule and the UNIVERSE++ model, and fits.  The run directory is
+datamodule and the UNIVERSE++ model, and fits (validating every
+``trainer.val_check_interval`` steps), resuming from ``ckpt_path=<.ckpt or
+run dir>`` when given; with ``test=true`` it then evaluates the test split
+(``test_results.json``, ``test_summary.json``; with ``train=false`` on the
+checkpoint ``ckpt_path`` names).  The run directory is
 ``<path.exp_root>/<experiment>/<datetime>[_overrides]``; its checkpoints
 load with ``inference/model_loader.py::load_model``.  It runs on CUDA unless
 ``device=cpu`` (or another device) is given, and raises without a GPU.
@@ -48,11 +52,6 @@ def main(argv=None):
     device = resolve_device(device)
     cfg = compose(args.config_dir, overrides)
     experiment = cfg.get("_choices_", {}).get("experiment", "default")
-    if cfg.get("ckpt_path"):
-        raise NotImplementedError("resuming (ckpt_path) is not ported (ROADMAP queue 1)")
-    if cfg.get("test", False):
-        raise NotImplementedError("test needs the metrics, not ported (ROADMAP queue 1)")
-
     seed = cfg.get("seed", 0)
     np.random.seed(seed)
     random.seed(seed)
@@ -76,10 +75,15 @@ def main(argv=None):
         val_check_interval=tcfg.get("val_check_interval", 5000),
         checkpoint_every=tcfg.get("checkpoint_every"),
         log_every=tcfg.get("log_every", 25),
+        max_val_batches=tcfg.get("max_val_batches"),
         seed=seed, device=device,
         config={k: v for k, v in cfg.items() if not k.startswith("_")})
     if cfg.get("train", True):
-        trainer.fit()
+        trainer.fit(resume_from=cfg.get("ckpt_path"))
+    elif cfg.get("ckpt_path"):
+        trainer.restore(cfg["ckpt_path"])
+    if cfg.get("test", False):
+        trainer.test()
     return trainer
 
 

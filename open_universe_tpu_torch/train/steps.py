@@ -59,12 +59,17 @@ class GANTrainStep:
     def __call__(self, batch: Dict[str, torch.Tensor],
                  generator: Optional[torch.Generator] = None,
                  draws: Optional[Dict[str, Any]] = None,
-                 disc_frozen: bool = False) -> Dict[str, torch.Tensor]:
+                 disc_frozen: bool = False,
+                 adaptive: Optional[Dict[str, torch.Tensor]] = None
+                 ) -> Dict[str, torch.Tensor]:
         """One step on ``batch`` ({"noisy", "clean"}: (B, T, 1) on the
         model's device).  The random draws come from ``generator`` unless
-        ``draws`` gives them: "u" (B,) uniform draws for sigma, "z" the
-        score's noise (B, T, 1), "perm" the dynamic-mixing permutation.
-        Returns the step's metrics as tensors."""
+        ``draws`` gives them: "u" (B,) uniform draws for sigma, "dice" (B,)
+        the adaptive time sampling's bin draws, "z" the score's noise
+        (B, T, 1), "perm" the dynamic-mixing permutation.  ``adaptive``
+        ({"pr_cum", "bins"}, the trainer's validation histogram) feeds
+        ``training.time_sampling: adaptive``.  Returns the step's metrics as
+        tensors."""
         model = self.model
         draws = draws or {}
         mpd, mrd = _params(model, ["loss_mpd"]), _params(model, ["loss_mrd"])
@@ -84,8 +89,12 @@ class GANTrainStep:
         (mix, target, target_original), *_ = model.normalize_batch(
             (mix, target, target_original))
 
+        adaptive = adaptive or {}
         gen_out = model.generator_forward(mix, target, target_original, generator,
-                                          u=draws.get("u"), z=draws.get("z"))
+                                          u=draws.get("u"), z=draws.get("z"),
+                                          pr_cum=adaptive.get("pr_cum"),
+                                          bins=adaptive.get("bins"),
+                                          dice=draws.get("dice"))
 
         zero = torch.zeros((), device=mix.device)
         disc_applied, saved = False, None

@@ -7,38 +7,67 @@ GAN step (``train/steps.py``), and ``fit`` takes steps from the
 datamodule's train loader, runs the disc-frozen step before
 ``losses.disc_freeze_step``, logs every ``log_every`` steps (losses, step
 time, peak device memory) to the log and to ``metrics.jsonl`` in the run
-directory, and writes a reference-layout checkpoint every
-``checkpoint_every`` steps and at the end: ``checkpoints/step_<n>.ckpt``
-holding ``state_dict`` (discriminators included) and the EMA shadow list in
-``inference/model_loader.py::ordered_param_names`` order, with the run's
-config beside it as ``checkpoints/config.yaml``, where ``load_model`` looks.
+directory, validates every ``val_check_interval`` steps, and writes a
+checkpoint every ``checkpoint_every`` steps and at the end.
 
-Not ported (ROADMAP queue 1 item 11): validation and test (they need the
-metrics), the adaptive time-sampling histogram, resume, gradient
-accumulation and multi-device training.  ``fit`` raises rather than train
-past a step where validation is due.
+Validation (``validate``) and ``test`` run on one copy of the generator per
+call with the EMA shadow as its weights and weight norm folded, without
+autograd, so every ConvBlock takes the fused kernel on the card.
+Validation: the score loss in each of ``validation.n_bins`` uniform time
+bins (``Universe.compute_losses(train=False)``), averaged over the val
+batches (``val/score``, ``val/score_<lo>-<hi>``; they feed the ``adaptive``
+time sampling's histogram), then ``enhance`` and the metric suite of
+``validation.enh_losses`` (``metrics.EvalMetrics``: ``val/lsd``,
+``val/pesq``) on the first ``max_enh_batches`` batches.  Clips are
+zero-padded to ``validation.bucket_seconds`` after normalisation.  The
+draws come from a generator seeded with the reference's validation seed,
+or from ``draws``.  ``test`` enhances the test split and writes
+``test_results.json`` and ``test_summary.json`` (``bin/eval_metrics.py``'s
+schema) to the run directory.
+
+Checkpoints, ``checkpoints/step_<n>.ckpt``, are in the reference's layout:
+``state_dict`` (discriminators included), the EMA shadow list in
+``inference/model_loader.py::ordered_param_names`` order, and, under
+Lightning's key names, ``optimizer_states`` (generator, discriminators) and
+``lr_schedulers`` (each optimizer's count of updates, on which its learning
+rate depends); the run's config is beside them as ``config.yaml``, where
+``load_model`` looks.  ``last.json`` points at the newest checkpoint,
+``index.json`` lists every checkpoint with the newest validation's
+``validation.main_loss`` and ``best.json`` the best of them by
+``main_loss_mode``.  ``restore`` (``fit(resume_from=...)``) resumes from a
+``.ckpt`` or a run directory's ``last.json``; the resumed run restarts its
+loader and its generator from the seed, as the JAX trainer does.
+
+Not ported (ROADMAP queue 1): the enhancement family's validation, gradient
+accumulation and multi-device training.
 """
 from __future__ import annotations
 
+import copy
 import json
 import logging
+import math
 import time
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Iterator, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 import yaml
 
 from ..inference.model_loader import ordered_param_names
 from ..models.universe_gan import UniverseGAN
 from ..nn.layers import init_weights
+from ..utils.convert import fold_weight_norm
 from ..utils.device import resolve_device
 from .ema import EMA
 from .optim import adamw, build_schedule
 from .steps import GANTrainStep
 
 log = logging.getLogger(__name__)
+
+VAL_SEED = 682479040  # reference universe.py:604
 
 
 def make_gan_step(model: UniverseGAN, max_steps: int) -> GANTrainStep:
@@ -82,6 +111,7 @@ class Trainer:
                  max_steps: int = 600_000, val_check_interval: int = 5000,
                  seed: int = 0, log_every: int = 25,
                  checkpoint_every: Optional[int] = None,
+                 max_val_batches: Optional[int] = None,
                  config: Optional[dict] = None, device=None):
         if not isinstance(model, UniverseGAN) or not hasattr(model, "loss_mpd"):
             raise NotImplementedError(
@@ -95,8 +125,12 @@ class Trainer:
         self.seed = seed
         self.log_every = log_every
         self.checkpoint_every = checkpoint_every or val_check_interval
+        self.max_val_batches = max_val_batches
         self.config = config
         self.device = resolve_device(device)
+        self._last_val: Dict[str, float] = {}
+        self._first_val_done = False
+        self.val_timing: Dict[str, float] = {}
         (self.output_dir / "checkpoints").mkdir(parents=True, exist_ok=True)
         if config is not None:
             with open(self.output_dir / "checkpoints" / "config.yaml", "w") as f:
@@ -104,30 +138,48 @@ class Trainer:
         self._setup()
 
     def _setup(self):
+        from ..configs.registry import instantiate
+
         init_weights(self.model, self.seed).to(self.device).train()
         self.step_fn = make_gan_step(self.model, self.max_steps)
         self.ema = self.step_fn.ema
+        # the metric suite of validation and test (EvalMetrics by default)
+        self.enh_losses = {}
+        for name, cfg in (self.model.val_kwargs.get("enh_losses") or {}).items():
+            try:
+                self.enh_losses[name] = instantiate(cfg) if isinstance(cfg, dict) else cfg
+            except Exception as e:
+                log.warning("enh loss %s unavailable: %s", name, e)
+        # the adaptive time sampling's histogram (reference universe.py:391-412,
+        # 630-638), uniform until the first validation
+        self._adaptive_mode = self.model.train_kwargs.get("time_sampling") == "adaptive"
+        tb = np.linspace(0.0, 1.0, self.model.val_kwargs.get("n_bins", 5) + 1)
+        pr_cum = tb.copy()
+        pr_cum[-1] = 1.0 + 1e-5
+        self.pr_cum = torch.tensor(pr_cum, dtype=torch.float32, device=self.device)
+        self.val_bins = torch.tensor(tb, dtype=torch.float32, device=self.device)
 
     # ------------------------------------------------------------------
     def _log(self, metrics: Dict[str, Any], step: int):
         row = {"step": step, **{k: float(v) for k, v in metrics.items()}}
         with open(self.output_dir / "metrics.jsonl", "a") as f:
             f.write(json.dumps(row) + "\n")
-        log.info("step %d loss_gen %.4f loss_disc %.4f (%.3f s/step, peak %.2f GiB)",
-                 step, row.get("train/loss_gen", float("nan")),
-                 row.get("train/loss_disc", float("nan")),
-                 row["perf/step_time_s"], row.get("perf/peak_mem_gib", 0.0))
+        if "perf/step_time_s" in row:
+            log.info("step %d loss_gen %.4f loss_disc %.4f (%.3f s/step, peak %.2f GiB)",
+                     step, row.get("train/loss_gen", float("nan")),
+                     row.get("train/loss_disc", float("nan")),
+                     row["perf/step_time_s"], row.get("perf/peak_mem_gib", 0.0))
 
-    def fit(self) -> Dict[str, float]:
-        """Train to ``max_steps``; returns the last step's metrics."""
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def fit(self, resume_from: Optional[str] = None) -> Dict[str, float]:
+        """Train to ``max_steps`` (from the checkpoint ``resume_from``
+        points at, if given); returns the last step's metrics."""
+        if resume_from:
+            self.restore(resume_from)
         step = self.step_fn.step
-        due = [s for s in range(step + 1, self.max_steps + 1)
-               if s % self.val_check_interval == 0]
-        if due:
-            raise NotImplementedError(
-                f"validation is due at step {due[0]} (trainer.val_check_interval="
-                f"{self.val_check_interval}) and is not ported (ROADMAP queue 1 "
-                "item 11); set trainer.val_check_interval above trainer.max_steps")
         gen = torch.Generator(device=self.device).manual_seed(self.seed + 1)
         loader = self.dm.train_dataloader()
         cuda = self.device.type == "cuda"
@@ -143,29 +195,242 @@ class Trainer:
                     break
                 b = {k: torch.from_numpy(np.asarray(batch[k])).to(self.device)
                      for k in ("noisy", "clean")}
-                metrics = self.step_fn(b, generator=gen,
+                adaptive = ({"pr_cum": self.pr_cum, "bins": self.val_bins}
+                            if self._adaptive_mode else None)
+                metrics = self.step_fn(b, generator=gen, adaptive=adaptive,
                                        disc_frozen=step < self.model.disc_freeze_step)
                 step += 1
                 if step % self.log_every == 0 or step == self.max_steps:
                     metrics = {k: float(v) for k, v in metrics.items()}
                     if cuda:
-                        torch.cuda.synchronize(self.device)
+                        self._sync()
                         metrics["perf/peak_mem_gib"] = (
                             torch.cuda.max_memory_allocated(self.device) / 2**30)
                     n = step % self.log_every or self.log_every
                     metrics["perf/step_time_s"] = (time.perf_counter() - t0) / n
                     t0 = time.perf_counter()
                     self._log(metrics, step)
+                if step % self.val_check_interval == 0:
+                    t_val = time.perf_counter()
+                    self._last_val = self.validate(step)
+                    self._log({**self._last_val, **self.val_timing}, step)
+                    t0 += time.perf_counter() - t_val  # not a step's time
                 if step % self.checkpoint_every == 0 and step != self.max_steps:
                     self.save(step)
         self.save(step)
         return {k: float(v) for k, v in metrics.items()}
 
     # ------------------------------------------------------------------
+    def _eval_model(self) -> UniverseGAN:
+        """A copy of the generator (the discriminators left out) with the EMA
+        shadow as its weights, weight norm folded, in eval mode and without
+        gradients: the model validation and test run, whose ConvBlocks the
+        fused kernel takes."""
+        m = self.model
+        skip = {id(getattr(m, k)): None for k in m.disc_param_keys()}
+        ev = copy.deepcopy(m, skip)
+        for mod in ev.modules():
+            if isinstance(mod, torch.nn.RNNBase):
+                mod.flatten_parameters()  # as .to() leaves them; a copy does not
+        if self.ema is not None:
+            self.ema.apply_to(ev)
+        return fold_weight_norm(ev).requires_grad_(False).eval()
+
+    def _pad_to_bucket(self, x: torch.Tensor) -> torch.Tensor:
+        """Zero-pad (B, T, C) up to a multiple of ``validation.bucket_seconds``
+        (default 1 s)."""
+        bucket = self.model.val_kwargs.get("bucket_seconds", 1.0)
+        t = x.shape[1]
+        step_len = max(int(round(bucket * self.model.fs)), 1)
+        t_pad = int(math.ceil(t / step_len) * step_len)
+        return F.pad(x, (0, 0, 0, t_pad - t)) if t_pad != t else x
+
+    def _bucketed_enhance(self, model, mix, generator=None, noise=None):
+        """``enhance`` of mix padded up to its length bucket, cut back."""
+        t = mix.shape[1]
+        return model.enhance(self._pad_to_bucket(mix), generator=generator,
+                             noise=noise)[:, :t]
+
+    def _enhance_and_score(self, model, step, bi, batch, mix, target, generator,
+                           noise, enh_metrics, timing):
+        """Enhance one val batch and run the metric suite on it (reference
+        base.py:408-478 / universe.py:640-704)."""
+        t0 = time.perf_counter()
+        est = self._bucketed_enhance(model, mix, generator, noise)  # (B, T, 1)
+        self._sync()
+        t1 = time.perf_counter()
+        est_b, tgt_b = est[:, :, 0][:, None, :], target[:, :, 0][:, None, :]
+        self._log_audio_samples(step, bi, np.asarray(batch["noisy"]),
+                                tgt_b.cpu().numpy(), est_b.cpu().numpy())
+        for name, loss in self.enh_losses.items():
+            vals = loss(est_b, tgt_b)
+            if not isinstance(vals, dict):
+                vals = {"": vals}
+            for sub_name, v in vals.items():
+                enh_metrics.setdefault(name + sub_name, []).append(float(v))
+        timing["device_s"] += t1 - t0
+        timing["enhance_s"] += t1 - t0
+        timing["metrics_s"] += time.perf_counter() - t1
+
+    @torch.no_grad()
+    def validate(self, step: int, draws: Optional[Iterator[dict]] = None
+                 ) -> Dict[str, float]:
+        """The binned score losses and the enhancement metrics on the val
+        split (JAX ``Trainer.validate``); updates the adaptive histogram.
+        ``draws`` gives the random draws in the order validation takes them
+        (for each batch one {"u", "z"} per bin, then {"noise"} for its
+        ``enhance``); without it they come from a generator seeded with
+        ``VAL_SEED``.  ``val_timing`` keeps the wall seconds: the model's
+        passes (synchronised; the enhance calls among them) and the host
+        metrics."""
+        t_start = time.perf_counter()
+        model = self._eval_model()
+        n_bins = model.val_kwargs.get("n_bins", 5)
+        max_enh = model.val_kwargs.get("max_enh_batches", 4)
+        gen = torch.Generator(device=self.device).manual_seed(VAL_SEED)
+        tb = np.linspace(0.0, 1.0, n_bins + 1)
+        bin_scores = np.zeros(n_bins)
+        n_batches = 0
+        enh_metrics: Dict[str, list] = {}
+        timing = {"device_s": 0.0, "enhance_s": 0.0, "metrics_s": 0.0}
+
+        for bi, batch in enumerate(self.dm.val_dataloader()):
+            if self.max_val_batches is not None and bi >= self.max_val_batches:
+                break
+            t0 = time.perf_counter()
+            mix = torch.from_numpy(np.asarray(batch["noisy"])).to(self.device)
+            target = torch.from_numpy(np.asarray(batch["clean"])).to(self.device)
+            (mix_n, target_n), *_ = model.normalize_batch((mix, target))
+            # bucket pad AFTER normalisation (the statistics of the native
+            # length batch); the score loss averages over the padded region
+            # too, a uniform dilution that cancels in the histogram
+            mix_p, _ = model.pad(self._pad_to_bucket(mix_n))
+            target_p, _ = model.pad(self._pad_to_bucket(target_n))
+            for i in range(n_bins):
+                d = next(draws) if draws is not None else {}
+                ls = model.compute_losses(mix_p, target_p, train=False,
+                                          t_min=float(tb[i]), t_max=float(tb[i + 1]),
+                                          generator=gen, u=d.get("u"), z=d.get("z"))
+                bin_scores[i] += float(ls)
+            n_batches += 1
+            timing["device_s"] += time.perf_counter() - t0
+
+            if bi < max_enh and self.enh_losses:
+                d = next(draws) if draws is not None else {}
+                self._enhance_and_score(model, step, bi, batch, mix, target, gen,
+                                        d.get("noise"), enh_metrics, timing)
+
+        metrics: Dict[str, float] = {}
+        if n_batches:
+            bin_scores /= n_batches
+            metrics["val/score"] = float(np.mean(bin_scores))
+            for i in range(n_bins):
+                metrics[f"val/score_{tb[i]:.2f}-{tb[i + 1]:.2f}"] = float(bin_scores[i])
+            # the adaptive time sampling's histogram (universe.py:630-638)
+            v = np.maximum(bin_scores, 5e-4)
+            pr_cum = np.concatenate([[0.0], np.cumsum(v)])
+            pr_cum /= pr_cum[-1]
+            pr_cum[-1] = 1.0 + 1e-5
+            self.pr_cum = torch.tensor(pr_cum, dtype=torch.float32, device=self.device)
+            self.val_bins = torch.tensor(tb, dtype=torch.float32, device=self.device)
+        for k, vals in enh_metrics.items():
+            metrics[k] = float(np.mean(vals))
+        self.val_timing = {"perf/val_wall_s": time.perf_counter() - t_start,
+                           **{f"perf/val_{k}": v for k, v in timing.items()}}
+        log.info("validation @%d: %s (%s)", step,
+                 {k: round(v, 4) for k, v in metrics.items()},
+                 {k: round(v, 3) for k, v in self.val_timing.items()})
+        return metrics
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def test(self, step: Optional[int] = None,
+             draws: Optional[Iterator[dict]] = None) -> Dict[str, float]:
+        """Test-set evaluation (reference train.py:105-119): enhance every
+        test clip, run the metric suite, and write per-file results and
+        their means to the run dir in ``bin/eval_metrics.py``'s schema.
+        ``draws`` as in ``validate``: one {"noise"} per batch."""
+        from ..bin.eval_metrics import summarize
+
+        if step is None:
+            step = self.step_fn.step
+        model = self._eval_model()
+        gen = torch.Generator(device=self.device).manual_seed(VAL_SEED)
+        results: Dict[str, Dict[str, float]] = {}
+        for batch in self.dm.test_dataloader():
+            mix = torch.from_numpy(np.asarray(batch["noisy"])).to(self.device)
+            target = torch.from_numpy(np.asarray(batch["clean"])).to(self.device)
+            d = next(draws) if draws is not None else {}
+            est = self._bucketed_enhance(model, mix, gen, d.get("noise"))
+            lengths = np.asarray(batch.get("length", [mix.shape[1]] * mix.shape[0]))
+            keys = batch.get("key", [f"clip{len(results) + i}" for i in range(mix.shape[0])])
+            for i, name in enumerate(keys):
+                t_i = int(lengths[i])
+                est_i = est[i, :t_i, 0][None, None, :]
+                tgt_i = target[i, :t_i, 0][None, None, :]
+                entry: Dict[str, float] = {}
+                for lname, loss in self.enh_losses.items():
+                    vals = loss(est_i, tgt_i)
+                    if not isinstance(vals, dict):
+                        vals = {"": vals}
+                    for sub_name, v in vals.items():
+                        entry[(lname + sub_name).replace("val/", "")] = float(v)
+                results[str(name)] = entry
+
+        summary = summarize(results)
+        with open(self.output_dir / "test_results.json", "w") as f:
+            json.dump(results, f, indent=2)
+        with open(self.output_dir / "test_summary.json", "w") as f:
+            json.dump(summary, f, indent=2)
+        self._log({f"test/{k}": v for k, v in summary.items() if k != "number"}, step)
+        log.info("test @%d over %d files: %s", step, int(summary.get("number", 0)),
+                 {k: round(float(v), 4) for k, v in summary.items()})
+        return summary
+
+    def _log_audio_samples(self, step, batch_idx, mix, tgt, est):
+        """Loudness-matched validation audio (reference universe.py:662-704)
+        as WAVs under ``audio/`` in the run dir: the mix and target once, the
+        enhanced clip at every validation."""
+        num = self.model.val_kwargs.get("num_tb_samples", 0)
+        if num <= 0 or batch_idx > 0:
+            return
+        from ..data.audio import save_audio
+        from ..metrics.loudness import loudness
+
+        fs = self.model.fs
+        out = self.output_dir / "audio"
+        out.mkdir(exist_ok=True)
+
+        def matched(x, ref_loud):
+            gain = 10.0 ** ((ref_loud - loudness(x, fs)) / 20.0)
+            return x * gain if np.isfinite(gain) else x
+
+        for idx in range(min(num, est.shape[0])):
+            mix_i = mix[idx, :, 0]
+            mix_loud = loudness(mix_i, fs)
+            if not self._first_val_done:
+                save_audio(out / f"mix_{idx}.wav",
+                           mix_i * 0.95 / max(np.max(np.abs(mix_i)), 1e-9), fs)
+                save_audio(out / f"target_{idx}.wav", matched(tgt[idx, 0], mix_loud), fs)
+            save_audio(out / f"enh_{idx}_step_{step:08d}.wav",
+                       matched(est[idx, 0], mix_loud), fs)
+        self._first_val_done = True
+
+    # ------------------------------------------------------------------
     def save(self, step: int) -> Path:
-        """Write ``checkpoints/step_<step>.ckpt`` in the reference's layout."""
+        """Write ``checkpoints/step_<step>.ckpt`` in the reference's layout,
+        then last.json, index.json and best.json."""
+        step_fn = self.step_fn
         sd = {k: v.detach().cpu() for k, v in self.model.state_dict().items()}
-        ckpt: Dict[str, Any] = {"state_dict": sd, "global_step": step}
+        ckpt: Dict[str, Any] = {
+            "state_dict": sd, "global_step": step,
+            "optimizer_states": [step_fn.opt_gen.state_dict(),
+                                 step_fn.opt_disc.state_dict()],
+            "lr_schedulers": [
+                {"updates": step_fn.gen_updates,
+                 "_last_lr": [g["lr"] for g in step_fn.opt_gen.param_groups]},
+                {"updates": step_fn.disc_updates,
+                 "_last_lr": [g["lr"] for g in step_fn.opt_disc.param_groups]}]}
         if self.ema is not None:
             names = ordered_param_names(sd, self.model.model_param_keys())
             ckpt["ema"] = {"shadow_params": [self.ema.shadow[n].cpu() for n in names],
@@ -173,5 +438,63 @@ class Trainer:
                            "num_updates": self.ema.num_updates}
         path = self.output_dir / "checkpoints" / f"step_{step:08d}.ckpt"
         torch.save(ckpt, path)
+        self._commit_last_json(step, path,
+                               self._last_val.get(self.model.val_kwargs.get("main_loss")))
         log.info("saved checkpoint %s", path)
         return path
+
+    def _commit_last_json(self, step: int, path: Path, metric: Optional[float]):
+        """last.json -> the newest checkpoint; index.json gains its entry
+        with the newest validation's ``validation.main_loss`` (e.g.
+        val/pesq; the reference encodes it in the checkpoint's file name,
+        train.py:64-76); best.json -> the best entry by ``main_loss_mode``."""
+        ckpt_dir = self.output_dir / "checkpoints"
+        with open(ckpt_dir / "last.json", "w") as f:
+            json.dump({"step": step, "path": str(path)}, f)
+        main_name = self.model.val_kwargs.get("main_loss")
+        index_path = ckpt_dir / "index.json"
+        index = []
+        if index_path.exists():
+            with open(index_path) as f:
+                index = json.load(f)
+        index = [e for e in index if e["step"] != step]
+        index.append({"step": step, "path": str(path), "metric": main_name,
+                      "value": metric})
+        with open(index_path, "w") as f:
+            json.dump(index, f, indent=2)
+        scored = [e for e in index if e.get("value") is not None]
+        if scored:
+            pick = max if self.model.val_kwargs.get("main_loss_mode", "min") == "max" else min
+            with open(ckpt_dir / "best.json", "w") as f:
+                json.dump(pick(scored, key=lambda e: e["value"]), f)
+
+    def restore(self, path) -> int:
+        """Load the model (discriminators included), both optimizers'
+        states, their update counts, the EMA shadow and the step from a
+        checkpoint ``save`` wrote: the ``.ckpt`` ``path``, or the one a
+        checkpoints dir's (or a run dir's) ``last.json`` points at; returns
+        the step."""
+        p = Path(path)
+        if p.is_dir() and not (p / "last.json").exists() \
+                and (p / "checkpoints" / "last.json").exists():
+            p = p / "checkpoints"
+        if p.is_dir():
+            with open(p / "last.json") as f:
+                last = Path(json.load(f)["path"])
+            p = last if last.exists() else p / last.name
+        ckpt = torch.load(p, map_location=self.device, weights_only=False)
+        self.model.load_state_dict(ckpt["state_dict"])
+        step_fn = self.step_fn
+        for opt, state in zip((step_fn.opt_gen, step_fn.opt_disc), ckpt["optimizer_states"]):
+            opt.load_state_dict(state)
+        step_fn.gen_updates, step_fn.disc_updates = (
+            int(s["updates"]) for s in ckpt["lr_schedulers"])
+        if self.ema is not None:
+            names = ordered_param_names(ckpt["state_dict"], self.model.model_param_keys())
+            with torch.no_grad():
+                for n, s in zip(names, ckpt["ema"]["shadow_params"]):
+                    self.ema.shadow[n].copy_(s)
+            self.ema.num_updates = int(ckpt["ema"]["num_updates"])
+        step_fn.step = int(ckpt["global_step"])
+        log.info("restored checkpoint %s (step %d)", p, step_fn.step)
+        return step_fn.step

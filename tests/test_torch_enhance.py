@@ -207,7 +207,8 @@ def test_main_path_imports_no_jax():
     """The port's main path, its serving path and its CLI, run end to end
     on the CPU (enhance; a checkpoint loaded by ``load_model`` and served
     over HTTP; the CLI on a stereo FLAC in chunks, with the codecs and the
-    native FLAC loader imported), load neither jax nor any module of the JAX
+    native FLAC loader imported), the metrics, the eval CLIs and a training
+    run that validates, load neither jax nor any module of the JAX
     package."""
     code = textwrap.dedent(f"""
         import io, sys, tempfile, threading, urllib.request
@@ -270,6 +271,41 @@ def test_main_path_imports_no_jax():
                              str(tmp / "weights.ckpt"), "--device", "cpu",
                              "--n_steps", "2", "--chunk-seconds", "0.05"]) == 0
         assert load_audio(tmp / "out" / "a.flac")[0].shape == (2, 800)
+
+        # the metrics, the eval CLIs and a training run that validates
+        import open_universe_tpu_torch.metrics.dnsmos
+        import open_universe_tpu_torch.metrics.plcmos
+        import open_universe_tpu_torch.metrics.wer
+        from open_universe_tpu_torch.bin import eval_metrics, make_table
+        from open_universe_tpu_torch.train.__main__ import main as train_main
+
+        torch.set_num_threads(1)  # the test workers share the cores
+        rng = np.random.default_rng(0)
+        for split, n in (("train", 2000), ("val", 16000)):
+            for d in ("clean", "noisy"):
+                (tmp / "data" / split / d).mkdir(parents=True)
+            clean = np.sin(np.arange(n) / 7) * 0.1
+            save_audio(tmp / "data" / split / "clean" / "u.wav", clean, 16000)
+            save_audio(tmp / "data" / split / "noisy" / "u.wav",
+                       clean + rng.standard_normal(n) * 0.02, 16000)
+        val = tmp / "data" / "val"
+        assert eval_metrics.main([str(val / "noisy"), "--ref_path", str(val / "clean"),
+                                  "--metrics", "pesq-wb", "lsd", "stoi"]) == 0
+        assert make_table.main(["--results", str(val / "noisy_summary.json")]) == 0
+        disc = "model.losses.multi_period_discriminator."
+        trainer = train_main([
+            "experiment=universepp_vb_16k", "device=cpu",
+            "model.score_model.n_channels=4", "model.score_model.noise_cond_dim=32",
+            "model.condition_model.n_mels=16", f"{{disc}}mpd_reshapes=[2]",
+            f"{{disc}}discriminator_channel_mult=0.25",
+            "model.losses.multi_resolution_discriminator.discriminator_channel_mult=0.25",
+            "model.losses.multi_resolution_discriminator.resolutions="
+            "[[128,30,75],[256,60,150],[64,12,30]]",
+            "model.diffusion.n_steps=2", f"datamodule.datasets.vb-train-16k.audio_path={{tmp / 'data'}}",
+            "datamodule.datasets.vb-train-16k.audio_len=0.05",
+            "datamodule.train.dl_opts.batch_size=1", "trainer.max_steps=1",
+            "trainer.val_check_interval=1", f"path.exp_root={{tmp / 'exp'}}"])
+        assert {{"val/score", "val/pesq", "val/lsd"}} <= set(trainer._last_val)
         if not torch.cuda.is_available():
             try:  # entry points run on CUDA unless asked for the CPU
                 universepp()
@@ -285,6 +321,6 @@ def test_main_path_imports_no_jax():
     """)
     root = Path(__file__).resolve().parents[1]
     proc = subprocess.run([sys.executable, "-c", code], cwd=root,
-                          capture_output=True, text=True, timeout=120)
+                          capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert proc.stdout.strip().endswith("ok")

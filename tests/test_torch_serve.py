@@ -290,8 +290,29 @@ def test_burst_of_connections_is_accepted():
         service.close()
 
 
-def test_concurrent_clips_share_one_batch(server, rng, monkeypatch):
-    url, _ = server
+def test_concurrent_clips_share_one_batch(rng, monkeypatch):
+    """Three concurrent requests are enhanced as one batch.  The test has
+    its own service with a generous window (2 s, as the JAX package's
+    test): under parallel test workers the third request can arrive more
+    than the shared fixture's 100 ms after the first.  ``max_batch`` rounds
+    down to a power of two, so the batch of 4 rows closes when the window
+    ends, not at the third request."""
+    model = fold_weight_norm(init_weights(instantiate(SERVE_CFG), seed=0)).eval()
+    srv, service = make_server(model, model_name="tiny", port=0, max_batch=4,
+                               batch_window_ms=2000.0, bucket_seconds=0.1,
+                               max_clip_seconds=1.0, enhance_kwargs={"n_steps": 2})
+    th = threading.Thread(target=srv.serve_forever, kwargs={"poll_interval": 0.05},
+                          daemon=True)
+    th.start()
+    try:
+        _concurrent_clips_share_one_batch(
+            f"http://127.0.0.1:{srv.server_address[1]}", rng, monkeypatch)
+    finally:
+        srv.shutdown()
+        service.close()
+
+
+def _concurrent_clips_share_one_batch(url, rng, monkeypatch):
     t = int(0.05 * FS)
     clips = [0.1 * np.sin(2 * np.pi * f * np.arange(t) / FS)
              + 0.02 * rng.standard_normal(t) for f in (220.0, 330.0, 440.0)]

@@ -110,10 +110,32 @@ Phases, each of which raises (exit code != 0) on failure:
    the run resumed from the step-2 checkpoint holds its state bit for bit
    and trains to step 4, validating at 4 only.  Logs a validation's wall
    seconds: the model's passes and the host metrics (PESQ).
+10. The plain UNIVERSE (MDN losses; the generic score path, no EDM).  (a)
+   The training entry point at full width: the ``universe_original_vb_16k``
+   experiment, batch 40 x 2 s crops of 80 synthetic 2.5 s pairs, f32,
+   PyTorch's TF32 defaults, ``ORIG_STEPS`` steps, a checkpoint at the
+   middle step and the last: the score, signal and latent losses finite,
+   0 fused-kernel launches in the steps; step times, peak memory.  (b) One
+   score-only step at a narrow width on the card against the CPU, same
+   weights and draws, TF32 off (losses <= 1e-5 relative, gradients <= 1e-3
+   of each tensor's largest).  (c) Its validation at the last step (4
+   val clips of 1.3-3.1 s at batch 1) and test (2 clips): launches by the
+   formula counted from the model's ConvBlocks (5 x 24 x 4 + 94 x 4, 94
+   per test clip), both entries; one validation through the kernel against
+   the kernels off (score bins <= 1e-4 relative, clips <= 1e-4 of
+   max|ref|); a run resumed from the middle checkpoint restores its state
+   (the MDN loss modules included) bit for bit.  (d) ``load_model`` on the
+   last checkpoint (no loss modules): ``enhance`` of 2 x 2 s through the
+   kernel against the unfused chain, f32 (<= 1e-4 of max|ref|) and bf16,
+   94 launches each; audio-s/s at batch 128 x 2 s, bf16 and f32, kernel
+   and unfused (median of 3).  (e) Narrow models with a CompressedMagSTFT
+   as the model's transform and as both networks' precoding: ``enhance``
+   on the card (cuFFT, the overlap-add ``istft``) against the CPU, <= 1e-4
+   of max|ref|.
 
 The last two lines are a JSON object with one entry per kernel (per-enhance
 sums; each shape's numbers are on the log lines of phases 3c, 4 and 4b; the
-CLI's launches per run of phase 7) and
+CLI's launches per run of phase 7; phase 10's launches per path) and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
 and prints no result.
 """
@@ -177,6 +199,18 @@ NARROW_OVERRIDES = ["model.score_model.n_channels=8", "model.score_model.noise_c
                     "model.losses.multi_period_discriminator.discriminator_channel_mult=0.125",
                     "model.losses.multi_resolution_discriminator.discriminator_channel_mult=0.25"]
 NARROW_T = 8000
+# phase 10: the plain UNIVERSE (MDN losses) through the training entry point
+# at full width, batch TRAIN_BATCH x 2 s crops; ORIG_VAL_PAIRS val clips of
+# 1.3-3.1 s at batch 1, ORIG_TEST_PAIRS test clips
+ORIG = "universe_original_vb_16k"
+ORIG_STEPS = 6
+ORIG_VAL_PAIRS, ORIG_TEST_PAIRS = 4, 2
+ORIG_OVERRIDES = []  # full width
+# 10b: one step on the card against the CPU at a narrow width (the MDN
+# LayerNorms follow the crop: audio_len = NARROW_T / FS)
+NARROW_ORIG_OVERRIDES = ["model.score_model.n_channels=8", "model.score_model.noise_cond_dim=64",
+                         "model.condition_model.n_mels=20",
+                         f"datamodule.datasets.vb-train-16k.audio_len={NARROW_T / FS}"]
 
 # first matching substring of a device kernel's lower-cased name names its
 # group; casts and contiguous copies are copy kernels, pads a fill and a copy
@@ -503,15 +537,15 @@ def phase_24k():
         time_shapes(by_shape(counts), TIMING_BATCH, tag="24k")
 
 
-def timed_enhance(model, mix, noise, fused: bool, dtype=torch.bfloat16):
+def timed_enhance(model, mix, noise, fused: bool, dtype=torch.bfloat16, runs: int = 5):
     """Median wall time of enhance with dtype networks (None: float32) over
-    5 runs after 2 warm-ups."""
+    ``runs`` runs after 2 warm-ups."""
     from open_universe_tpu_torch.ops import kernels
 
     kernels.enable(fused)
     try:
         times = []
-        for i in range(7):  # 2 warm-up runs, then 5 timed
+        for i in range(runs + 2):  # 2 warm-up runs, then the timed ones
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             model.enhance(mix, n_steps=N_STEPS, compute_dtype=dtype, noise=noise)
@@ -1498,12 +1532,15 @@ def trainer_state(tr) -> dict:
     """What a checkpoint holds of a trainer, as ``Trainer.save`` lays it out."""
     from open_universe_tpu_torch.inference.model_loader import ordered_param_names
 
+    from open_universe_tpu_torch.train.trainer import optimizers
+
     step = tr.step_fn
     sd = tr.model.state_dict()
     names = ordered_param_names(sd, tr.model.model_param_keys())
+    opts = optimizers(step)
     return {"state_dict": sd, "global_step": step.step,
-            "optimizer_states": [step.opt_gen.state_dict(), step.opt_disc.state_dict()],
-            "updates": [step.gen_updates, step.disc_updates],
+            "optimizer_states": [o.state_dict() for o, _ in opts],
+            "updates": [getattr(step, count) for _, count in opts],
             "ema": [tr.ema.shadow[n] for n in names], "num_updates": tr.ema.num_updates}
 
 
@@ -1692,6 +1729,351 @@ def phase_validation():
             "resume_s": resume_s, "profile": profiled}
 
 
+# ---------------------------------------------------------------- phase 10
+def block_counts(model) -> tuple:
+    """(score network, conditioner) ConvBlocks of a model."""
+    from open_universe_tpu_torch.nn.blocks import ConvBlock
+
+    return tuple(sum(isinstance(m, ConvBlock) for m in getattr(model, k).modules())
+                 for k in ("score_model", "condition_model"))
+
+
+def phase_original_training():
+    """10a and 10c: the training entry point at full width
+    (universe_original_vb_16k, batch 40 x 2 s, f32, PyTorch's TF32 defaults)
+    for ORIG_STEPS steps on synthetic pairs, a checkpoint at the middle step
+    and the last, a validation at the last, then the test.  Checks the
+    losses (finite), the launches of the steps (0) and of the validation
+    and test (by the formula, counted from the model's ConvBlocks, both
+    entries), one validation through the kernel against the same with the
+    kernels off (TF32 off), and the state a run resumed from the middle
+    checkpoint restores.  Returns its numbers and the last checkpoint."""
+    import glob
+
+    from open_universe_tpu_torch.ops import kernels
+    from open_universe_tpu_torch.ops.kernels import conv_block
+    from open_universe_tpu_torch.train import trainer as ptrainer
+    from open_universe_tpu_torch.train.__main__ import main as train_main
+
+    tmp = tempfile.mkdtemp()
+    data, exp = os.path.join(tmp, "data"), os.path.join(tmp, "exp")
+    t0 = time.perf_counter()
+    write_pairs(data, TRAIN_PAIRS, TRAIN_PAIR_S, seed=8)
+    write_pairs(data, ORIG_VAL_PAIRS, np.linspace(1.3, 3.1, ORIG_VAL_PAIRS), seed=9,
+                split="val")
+    write_pairs(data, ORIG_TEST_PAIRS, np.linspace(1.5, 2.5, ORIG_TEST_PAIRS), seed=10,
+                split="test")
+    log(f"[orig] {TRAIN_PAIRS} train pairs, {ORIG_VAL_PAIRS} val and {ORIG_TEST_PAIRS} test "
+        f"pairs written in {time.perf_counter() - t0:.1f} s")
+    half = ORIG_STEPS // 2
+    args = [f"experiment={ORIG}", f"device={DEVICE}",
+            f"datamodule.datasets.vb-train-16k.audio_path={data}",
+            f"datamodule.train.dl_opts.batch_size={TRAIN_BATCH}",
+            f"trainer.max_steps={ORIG_STEPS}", f"trainer.val_check_interval={ORIG_STEPS}",
+            f"trainer.checkpoint_every={half}", "trainer.log_every=1", *ORIG_OVERRIDES]
+    calls, steps_launched = [], [0]
+    real_validate, real_test = ptrainer.Trainer.validate, ptrainer.Trainer.test
+
+    def counted(real, kind):
+        def run(self, step=None, draws=None):
+            steps_launched[0] += sum(conv_block.launches.values())
+            conv_block.launches.clear()
+            out = real(self, step, draws)
+            torch.cuda.synchronize()
+            calls.append({"kind": kind, "launches": dict(conv_block.launches),
+                          "timing": dict(self.val_timing) if kind == "validate" else {}})
+            conv_block.launches.clear()
+            return out
+        return run
+
+    ptrainer.Trainer.validate = counted(real_validate, "validate")
+    ptrainer.Trainer.test = counted(real_test, "test")
+    tf32_flags(True)
+    try:
+        trainer = train_main(args + ["train=false", f"path.exp_root={exp}/first"])
+        model = trainer.model
+        conv_block.launches.clear()
+        t0 = time.perf_counter()
+        trainer.fit()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        steps_launched[0] += sum(conv_block.launches.values())
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        trainer.test()
+    finally:
+        tf32_flags(False)
+        ptrainer.Trainer.validate, ptrainer.Trainer.test = real_validate, real_test
+    (run_dir,) = glob.glob(os.path.join(exp, "first", ORIG, "*"))
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    train_rows = [r for r in rows if "train/loss" in r]
+    for r in train_rows:
+        log(f"[orig] step {r['step']}: loss {r['train/loss']:.4f} (score "
+            f"{r['train/score']:.4f}, signal {r['train/signal']:.4f}, latent "
+            f"{r['train/latent']:.4f}), grad norm {r['grad/norm']:.3f}, "
+            f"{r['perf/step_time_s']:.3f} s, peak {r.get('perf/peak_mem_gib', float('nan')):.2f} GiB")
+    losses = ("train/score", "train/signal", "train/latent")
+    if len(train_rows) != ORIG_STEPS or not all(
+            np.isfinite(r[k]) for r in train_rows for k in losses + ("train/loss",)):
+        raise AssertionError(f"plain UNIVERSE training losses: {train_rows}")
+    n_params = {k: sum(p.numel() for p in getattr(model, k).parameters())
+                for k in model.model_param_keys() + model.loss_param_keys()}
+    s_blocks, c_blocks = block_counts(model)
+    n_steps = model.diff_kwargs["n_steps"]
+    per_enhance = s_blocks * n_steps + c_blocks
+    want_val = (N_BINS * (s_blocks + c_blocks) * ORIG_VAL_PAIRS
+                + per_enhance * min(ORIG_VAL_PAIRS, MAX_ENH))
+    log(f"[orig] {s_blocks} + {c_blocks} ConvBlocks (score network + conditioner); "
+        f"fused-kernel launches during the {ORIG_STEPS} steps: {steps_launched[0]}")
+    if steps_launched[0] or (s_blocks, c_blocks) != (SCORE_BLOCKS, COND_BLOCKS) or \
+            want_val != validation_launches(ORIG_VAL_PAIRS) or per_enhance != PATH_LAUNCHES:
+        raise AssertionError(f"steps launched {steps_launched[0]}; blocks {s_blocks}, {c_blocks}")
+    if [c["kind"] for c in calls] != ["validate", "test"]:
+        raise AssertionError(f"validations and tests run: {[c['kind'] for c in calls]}")
+    check_launches("orig validate", calls[0]["launches"], want_val)
+    check_launches("orig test", calls[1]["launches"], per_enhance * ORIG_TEST_PAIRS)
+    val = [r for r in rows if "val/score" in r]
+    with open(os.path.join(run_dir, "test_summary.json")) as f:
+        summary = json.load(f)
+    log(f"[orig] validation @{val[0]['step']}: "
+        + ", ".join(f"{k} {val[0][k]:.4f}" for k in VAL_KEYS) + f"; test summary {summary}")
+    if not all(np.isfinite(val[0][k]) for k in VAL_KEYS) or summary.get("number") != \
+            ORIG_TEST_PAIRS:
+        raise AssertionError(f"validation {val}, test {summary}")
+
+    times = [r["perf/step_time_s"] for r in train_rows]
+    result = {"steps": ORIG_STEPS, "batch": TRAIN_BATCH, "crop_s": 2.0,
+              "first_step_s": times[0], "median_step_s": float(np.median(times[1:])),
+              "peak_mem_gib": peak, "fit_s": fit_s, "params": n_params,
+              "step_launches": steps_launched[0],
+              "losses": {k: [r[k] for r in train_rows] for k in losses + ("train/loss",)},
+              "validation_launches": by_entry(calls[0]["launches"]),
+              "expected_validation_launches": want_val,
+              "test_launches": by_entry(calls[1]["launches"]),
+              "validation_timing": calls[0]["timing"], "test_summary": summary}
+    log(f"[orig] {card_line()}: first step {times[0]:.3f} s, median after it "
+        f"{result['median_step_s']:.3f} s, peak {peak:.2f} GiB (batch {TRAIN_BATCH} x 2 s, "
+        f"f32, cuDNN TF32 on); params {n_params}")
+
+    # one validation through the kernel against the same with the kernels off
+    recorder = EstRecorder(trainer.enh_losses["val/"])
+    trainer.enh_losses = {"val/": recorder}
+    kern = trainer.validate(ORIG_STEPS)
+    kernels.enable(False)
+    try:
+        plain = trainer.validate(ORIG_STEPS)
+    finally:
+        kernels.enable(True)
+    n_enh = len(recorder.est) // 2
+    wave = max((a - b).abs().max().item() / b.abs().max().item()
+               for a, b in zip(recorder.est[:n_enh], recorder.est[n_enh:]))
+    score_rel = max(abs(kern[k] - plain[k]) / abs(plain[k]) for k in VAL_KEYS[:6])
+    log(f"[orig] validation, kernel vs kernels off (TF32 off): score bins max relative "
+        f"difference {score_rel:.3e} (bound 1e-4); enhanced clips max|d| / max|ref| "
+        f"{wave:.3e} (bound 1e-4) over {n_enh} clips")
+    if not (score_rel <= 1e-4 and wave <= 1e-4 and n_enh == min(ORIG_VAL_PAIRS, MAX_ENH)):
+        raise AssertionError(f"plain UNIVERSE validation through the kernel and with it off "
+                             f"differ: scores {score_rel}, waveforms {wave}")
+    result["kernel_vs_off"] = {"score_rel": score_rel, "wave_rel": wave}
+    del trainer, model
+    torch.cuda.empty_cache()
+
+    # resume from the middle checkpoint: the restored state is its own
+    ckpt_dir = os.path.join(run_dir, "checkpoints")
+    ckpt_mid = os.path.join(ckpt_dir, f"step_{half:08d}.ckpt")
+    resumed = train_main(args + [f"ckpt_path={ckpt_mid}", "train=false",
+                                 f"path.exp_root={exp}/resumed"])
+    saved = torch.load(ckpt_mid, map_location=DEVICE, weights_only=False)
+    restored = trainer_state(resumed)
+    bad = same_state(restored, {
+        "state_dict": saved["state_dict"], "global_step": saved["global_step"],
+        "optimizer_states": saved["optimizer_states"],
+        "updates": [s["updates"] for s in saved["lr_schedulers"]],
+        "ema": saved["ema"]["shadow_params"], "num_updates": saved["ema"]["num_updates"]})
+    bad += [] if (restored["global_step"], restored["num_updates"], restored["updates"]) == (
+        half, half, [half]) else ["counts"]
+    loss_keys = [k for k in saved["state_dict"] if k.startswith("loss_")]
+    log(f"[orig] resumed from {os.path.basename(ckpt_mid)}: {len(loss_keys)} MDN loss "
+        f"tensors in it; restored state differs at {bad[:5]} ({len(bad)} paths)")
+    if bad or not loss_keys:
+        raise AssertionError(f"plain UNIVERSE resume differs at {bad[:8]}")
+    del resumed, saved
+    torch.cuda.empty_cache()
+    (ckpt,) = [c for c in glob.glob(os.path.join(ckpt_dir, "*.ckpt"))
+               if c.endswith(f"step_{ORIG_STEPS:08d}.ckpt")]
+    return result, ckpt
+
+
+def phase_original_step_vs_cpu():
+    """10b: one score-only step at a narrow width (NARROW_ORIG_OVERRIDES) on
+    the card and on the CPU from the same weights, batch and draws, TF32
+    off.  Bounds: losses relative <= 1e-5; every tensor's gradient <= 1e-3
+    of its largest (a one-element PReLU slope, one sum over the batch, 1e-2);
+    every parameter's change as in 8b."""
+    import copy
+
+    from open_universe_tpu_torch.configs.registry import instantiate_trainable
+    from open_universe_tpu_torch.configs.resolve import compose
+    from open_universe_tpu_torch.nn.layers import init_weights
+    from open_universe_tpu_torch.train.trainer import make_step
+
+    cfg = compose(config_dir(), [f"experiment={ORIG}", *NARROW_ORIG_OVERRIDES])
+    base = init_weights(instantiate_trainable(cfg["model"]), seed=3)
+    rng = np.random.default_rng(5)
+    clean = (0.05 * rng.standard_normal((2, NARROW_T, 1))).astype(np.float32)
+    batch = {"clean": clean,
+             "noisy": clean + (0.02 * rng.standard_normal(clean.shape)).astype(np.float32)}
+    draws = {"u": rng.uniform(size=2).astype(np.float32),
+             "z": rng.standard_normal(clean.shape).astype(np.float32)}
+    runs = {}
+    for tag, device in (("cpu", "cpu"), ("card", DEVICE)):
+        model = copy.deepcopy(base).to(device)
+        step = make_step(model, cfg["trainer"]["max_steps"])
+        m = step({k: torch.from_numpy(v).to(device) for k, v in batch.items()},
+                 draws={k: torch.from_numpy(v).to(device) for k, v in draws.items()})
+        runs[tag] = ({k: float(v) for k, v in m.items()},
+                     {n: (p.detach().cpu(), p.grad.cpu()) for n, p in model.named_parameters()})
+    p0 = dict(base.named_parameters())
+    (m_cpu, cpu), (m_card, card) = runs["cpu"], runs["card"]
+    loss_rel = {k: abs(m_card[k] - v) / max(abs(v), 1e-12)
+                for k, v in m_cpu.items() if k.startswith(("train/", "grad/"))}
+    grad_rel, delta_rel, small, failed = {}, {}, 0, []
+    for n, (p_cpu, g_cpu) in cpu.items():
+        p_card, g_card = card[n]
+        scale = g_cpu.abs().max().item()
+        grad_rel[n] = (g_card - g_cpu).abs().max().item() / max(scale, 1e-30)
+        if not grad_rel[n] <= (1e-2 if g_cpu.numel() == 1 else 1e-3):
+            failed.append(f"gradient of {n}: {grad_rel[n]:.3e}")
+        d_cpu, d_card = p_cpu - p0[n].detach(), p_card - p0[n].detach()
+        if not d_cpu.abs().max() > 0:
+            continue
+        bound = 1e-3 * d_cpu.abs().max() + 2 * torch.finfo(torch.float32).eps * (
+            p0[n].detach().abs() + d_cpu.abs())
+        bad = (d_card - d_cpu).abs() > bound
+        tiny = (g_cpu.abs() < 1e-2 * scale) | (g_cpu.abs() < 1e-7)
+        small += int((bad & tiny).sum())
+        if (bad & ~tiny).any():
+            failed.append(f"update of {n}")
+        delta_rel[n] = ((d_card - d_cpu).abs() * ~tiny).max().item() / d_cpu.abs().max().item()
+    n_el = sum(p.numel() for p in base.parameters())
+    by = {}
+    for n, r in grad_rel.items():
+        by.setdefault(n.split(".")[0], []).append(r)
+    summary = {g: {"max": max(v), "median": float(np.median(v)), "n": len(v)}
+               for g, v in by.items()}
+    log(f"[orig-vs-cpu] narrow step ({NARROW_ORIG_OVERRIDES}, batch 2 x {NARROW_T}), TF32 "
+        f"off: losses and norms max rel {max(loss_rel.values()):.3e} "
+        f"({max(loss_rel, key=loss_rel.get)}); gradients max|d| / max|g_cpu| per tensor by "
+        f"group {summary}; updates (small-gradient elements aside, {small} of {n_el} past "
+        f"1e-3) worst {max(delta_rel.values()):.3e}")
+    if not max(loss_rel.values()) <= 1e-5 or small > 1e-2 * n_el or failed:
+        raise AssertionError(f"plain UNIVERSE card vs CPU step beyond its bounds: losses "
+                             f"{loss_rel}, small {small}, {failed[:8]}")
+    return {"loss_rel": max(loss_rel.values()), "grad_rel": summary,
+            "update_rel_max": max(delta_rel.values()), "small_gradient_elements": small,
+            "elements": n_el}
+
+
+def phase_original_checkpoint(ckpt: str):
+    """10d: load_model on the trained checkpoint (EMA applied); enhance of
+    2 x 2 s through the kernel against the unfused chain, f32 (<= 1e-4 of
+    max|ref|) and bf16, 94 launches each; then audio-s/s at batch 128 x 2 s,
+    bf16 and f32, kernel and unfused (median of 3)."""
+    from open_universe_tpu_torch.inference.model_loader import load_model
+
+    model = load_model(ckpt, device=DEVICE)
+    t = int(CLIP_S * FS)
+    g = torch.Generator(device=DEVICE).manual_seed(51)
+    mix = torch.randn(2, t, generator=g, device=DEVICE) * 0.05
+    noise = noise_draws(model, 2, t, seed=52)
+    out = {"type": type(model).__name__, "loss_modules": list(model.loss_param_keys())}
+    for tag, dtype, route in (("f32", None, F32), ("bf16", torch.bfloat16, BF16)):
+        o, counts = counted_enhance(model, mix, noise, dtype)
+        check_path(f"orig {tag}", counts, WIDTH_LENGTHS, route, o, t)
+        ref = unfused_enhance(model, mix, noise, dtype)
+        rel = (o - ref).abs().max().item() / ref.abs().max().item()
+        out[tag] = {"launches": by_entry(counts), "max_rel_diff": rel}
+        log(f"[orig {tag}] trained {os.path.basename(ckpt)} via load_model ({out['type']}, "
+            f"no loss modules: {not out['loss_modules']}): max|kernel - unfused| / max|ref| = "
+            f"{rel:.3e}" + (" (bound 1e-4)" if dtype is None else " (no bound: bf16)"))
+        if out["loss_modules"] or (dtype is None and not rel <= 1e-4):
+            raise AssertionError(f"trained plain UNIVERSE {tag}: kernel vs unfused {rel}")
+    mix = torch.randn(TIMING_BATCH, t, generator=g, device=DEVICE) * 0.05
+    noise = noise_draws(model, TIMING_BATCH, t, seed=53)
+    rates = {}
+    for tag, dtype in (("bf16", torch.bfloat16), ("f32", None)):
+        for fused in (True, False):
+            s = timed_enhance(model, mix, noise, fused, dtype, runs=3)
+            rates[f"{tag}_{'kernel' if fused else 'unfused'}"] = TIMING_BATCH * CLIP_S / s
+    log(f"[orig] {card_line()}: trained plain UNIVERSE enhance at batch {TIMING_BATCH} x 2 s, "
+        f"8 steps (the generic score path), audio-s/s: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in rates.items()))
+    out["audio_s_per_s"] = rates
+    del model, mix, noise
+    torch.cuda.empty_cache()
+    return out
+
+
+# 10e: narrow models whose networks run on a CompressedMagSTFT (n_fft 6,
+# hop 8: 8 channels, the conditioner's mel hop lines up with the frames)
+STFT_NODE = {"_target_": "open_universe.layers.dyn_range_comp.CompressedMagSTFT",
+             "stft_kwargs": {"n_fft": 6, "hop_length": 8, "window_name": "hann"},
+             "spec_kwargs": {"transform_type": "exponent", "abs_exponent": 0.5,
+                             "factor": 0.3}}
+
+
+def stft_model_config(where: str) -> dict:
+    """A narrow plain UNIVERSE with the transform as the model's
+    ``transform`` or as both networks' ``precoding``."""
+    net = {"rate_factors": [2, 2], "n_channels": 16, "use_weight_norm": False}
+    pre = {"precoding": STFT_NODE} if where == "precoding" else {}
+    cfg = {"_target_": "open_universe.networks.universe.Universe", "fs": FS,
+           "normalization_norm": 2, "normalization_kwargs": {"ref": "both", "level_db": -26.0},
+           "score_model": {"_target_": "open_universe.networks.universe.ScoreNetwork", **net,
+                           "noise_cond_dim": 64, "input_channels": 8, "output_channels": 8,
+                           **pre},
+           "condition_model": {"_target_": "open_universe.networks.universe.ConditionerNetwork",
+                               **net, "n_mels": 20, "input_channels": 8,
+                               **({"output_channels": 8} if pre else {}), **pre}}
+    if where == "transform":
+        cfg["transform"] = STFT_NODE
+    return cfg
+
+
+def phase_transform_vs_cpu():
+    """10e: enhance (2 x 2 s, 8 steps, f32, TF32 off) of a narrow model with
+    a CompressedMagSTFT transform and of one with it as both networks'
+    precoding, on the card (cuFFT's rfft and irfft, the overlap-add istft)
+    against the CPU on the same weights and draws: <= 1e-4 of max|ref|."""
+    import copy
+
+    from open_universe_tpu_torch.configs.registry import instantiate
+    from open_universe_tpu_torch.nn.layers import init_weights
+
+    t = int(CLIP_S * FS)
+    rng = np.random.default_rng(61)
+    mix = torch.from_numpy((0.05 * rng.standard_normal((2, t))).astype(np.float32))
+    out = {}
+    for where in ("transform", "precoding"):
+        base = init_weights(instantiate(stft_model_config(where)), seed=4).eval()
+        padded = t + base.tot_ds - t % base.tot_ds
+        shape = ((2, padded // 8 + 1, 8) if where == "transform" else (2, padded, 1))
+        noise = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                 for _ in range(N_STEPS)]
+        ref = base.enhance(mix, n_steps=N_STEPS, noise=noise)
+        card = copy.deepcopy(base).to(DEVICE)
+        got = card.enhance(mix.to(DEVICE), n_steps=N_STEPS,
+                           noise=[z.to(DEVICE) for z in noise]).cpu()
+        rel = (got - ref).abs().max().item() / ref.abs().max().item()
+        out[where] = rel
+        log(f"[stft] narrow plain UNIVERSE with a CompressedMagSTFT {where}: enhance on the "
+            f"card vs the CPU, max|d| / max|ref| = {rel:.3e} (bound 1e-4); output "
+            f"{tuple(got.shape)}")
+        if got.shape != (2, t) or not torch.isfinite(got).all() or not rel <= 1e-4:
+            raise AssertionError(f"CompressedMagSTFT {where}: card vs CPU {rel}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1745,6 +2127,14 @@ def main() -> int:
     lap("8c trained checkpoint")
     validation = phase_validation()
     lap("9 validation")
+    original, orig_ckpt = phase_original_training()
+    lap("10a/c plain UNIVERSE training, validation, resume")
+    original["card_vs_cpu"] = phase_original_step_vs_cpu()
+    lap("10b plain UNIVERSE card vs cpu")
+    original["trained_checkpoint"] = phase_original_checkpoint(orig_ckpt)
+    lap("10d plain UNIVERSE checkpoint")
+    original["compressed_mag_stft_vs_cpu"] = phase_transform_vs_cpu()
+    lap("10e CompressedMagSTFT")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     def cli_entry(entry):
@@ -1814,6 +2204,11 @@ def main() -> int:
         # phase 9: validation and test of the entry point (launches per
         # validation and per test, both entries), kernel vs kernels off
         "validation": validation,
+        # phase 10: the plain UNIVERSE (generic score path): training (no
+        # launch in its steps), its validation and test (launches through
+        # both entries), its trained checkpoint's enhance and audio-s/s,
+        # the CompressedMagSTFT models against the CPU
+        "universe_original": original,
     }, {
         "name": "fused_conv_chain_rows",
         "route": "cuda",
@@ -1839,6 +2234,14 @@ def main() -> int:
         "validation_launches": [v.get("fused_conv_chain_rows", 0)
                                 for v in validation["validation_launches"]],
         "test_launches": validation["test_launches"].get("fused_conv_chain_rows", 0),
+        # phase 10: the plain UNIVERSE's validation, test and trained
+        # checkpoint's enhance through this entry
+        "universe_original_launches": {
+            "steps": original["step_launches"],
+            "validation": original["validation_launches"].get("fused_conv_chain_rows", 0),
+            "test": original["test_launches"].get("fused_conv_chain_rows", 0),
+            **{f"trained_enhance_{k}": original["trained_checkpoint"][k]["launches"].get(
+                "fused_conv_chain_rows", 0) for k in ("f32", "bf16")}},
     }]}
     for tag, sh in (("batch 128, 16 kHz", shapes), ("batch 128, 24 kHz", shapes_24k),
                     ("rows, batch 16", rows_shapes)):

@@ -6,7 +6,8 @@ files load unchanged) and ``open_universe_tpu.`` names resolve.  A factory
 takes the node's keys and builds its own children.  A target the port lacks
 raises ``KeyError`` with its name.  ``instantiate`` builds a model for
 inference, without its training nodes; ``instantiate_trainable`` builds a
-UNIVERSE++ for the trainer, with them (and so with its discriminators).
+UNIVERSE or UNIVERSE++ for the trainer, with them (and so with its loss
+modules: the MDN losses or the discriminators).
 """
 from __future__ import annotations
 
@@ -66,9 +67,6 @@ def _universe_kwargs(kw: dict, train: bool = False) -> dict:
         raise NotImplementedError(f"score_loss {sl} not supported (MSE only)")
     out = {k: v for k, v in kw.items() if train or k not in _TRAINING_ONLY}
     if train:
-        if "with_noise_target" in out and out.pop("with_noise_target"):
-            raise NotImplementedError("with_noise_target is a plain UNIVERSE loss; "
-                                      "its training is not ported")
         out["losses"] = {k: v for k, v in losses.items() if k != "score_loss"}
     out["score_model"] = instantiate(kw.get("score_model"))
     out["condition_model"] = instantiate(kw.get("condition_model"))
@@ -78,10 +76,10 @@ def _universe_kwargs(kw: dict, train: bool = False) -> dict:
 
 
 @register("networks.universe.Universe")
-def build_universe(**kw):
+def build_universe(train: bool = False, **kw):
     from ..models.universe import Universe
 
-    return Universe(**_universe_kwargs(kw))
+    return Universe(**_universe_kwargs(kw, train=train))
 
 
 @register("networks.universe.UniverseGAN")
@@ -96,22 +94,37 @@ def build_universe_gan(train: bool = False, **kw):
 
 
 def instantiate_trainable(cfg: dict):
-    """The UNIVERSE++ model of a training config, with its training nodes
-    (losses, training, validation, optimizer, scheduler, grad_clipper).  The
-    plain UNIVERSE and LoRA are not trained by the port (ROADMAP queue 1)."""
+    """The UNIVERSE or UNIVERSE++ model of a training config, with its
+    training nodes (losses, training, validation, optimizer, scheduler,
+    grad_clipper) and its loss modules.  LoRA and the enhancement family are
+    not trained by the port (ROADMAP queue 1)."""
     target = cfg.get("_target_", "") if isinstance(cfg, dict) else ""
-    if _REGISTRY.get(target) is not build_universe_gan:
-        raise NotImplementedError(f"the port trains UniverseGAN only, not {target!r} "
-                                  "(ROADMAP queue 1)")
-    return build_universe_gan(train=True, **{k: v for k, v in cfg.items()
-                                             if k not in _META})
+    fn = _REGISTRY.get(target)
+    if fn not in (build_universe, build_universe_gan):
+        raise NotImplementedError(f"the port trains Universe and UniverseGAN only, not "
+                                  f"{target!r} (ROADMAP queue 1)")
+    return fn(train=True, **{k: v for k, v in cfg.items() if k not in _META})
 
 
 @register("layers.dyn_range_comp.IdentityTransform")
 def build_identity_transform(**kw):
-    from ..models.universe import IdentityTransform
+    from ..models.transforms import IdentityTransform
 
     return IdentityTransform()
+
+
+@register("layers.dyn_range_comp.CompressedMagSTFT")
+def build_compressed_mag_stft(**kw):
+    from ..models.transforms import CompressedMagSTFT
+
+    return CompressedMagSTFT(**kw)
+
+
+@register("layers.dyn_range_comp.CompressedMagSTFTPadded")
+def build_compressed_mag_stft_padded(**kw):
+    from ..models.transforms import CompressedMagSTFTPadded
+
+    return CompressedMagSTFTPadded(**kw)
 
 
 @register("metrics.EvalMetrics")

@@ -167,8 +167,7 @@ class ConditionerNetwork(nn.Module):
                  output_channels=None, use_weight_norm=False, seq_model="gru",
                  use_antialiasing=False):
         super().__init__()
-        if precoding is not None:
-            raise NotImplementedError("precoding is not ported yet")
+        self.precoding = precoding  # a transform of models/transforms.py, or None
         self.n_mels = n_mels
         self.input_channels = input_channels
         self.rate_factors = list(rate_factors)
@@ -203,10 +202,14 @@ class ConditionerNetwork(nn.Module):
         if x_wav is None:
             x_wav = x
         x_mel = self.input_mel(x_wav)
+        if self.precoding is not None:
+            x = self.precoding(x)
         h, lengths = self.encoder(self.input_conv(x), x_mel)
         y_hat, conditions = self.decoder(h, lengths)
         if self.output_conv is not None:
             y_hat = self.output_conv(y_hat)
+        if self.precoding is not None:
+            y_hat = self.precoding.inv(y_hat)
         if y_hat.shape[1] < n_samples:
             y_hat = F.pad(y_hat, (0, 0, 0, n_samples - y_hat.shape[1]))
         return conditions, y_hat, h

@@ -1,5 +1,6 @@
 """Model presets mirroring the reference experiment configurations (JAX
-package ``models/presets.py``; identity transform only).
+package ``models/presets.py``), built for inference: without loss modules
+(the training entry point builds its model, with them, from the config).
 
 Each preset builds its model on the CPU, draws its weights from ``seed``
 (``nn/layers.py::init_weights``) and moves it to ``device``: CUDA unless the

@@ -115,8 +115,7 @@ class ScoreNetwork(nn.Module):
                  output_channels=1, use_weight_norm=False, seq_model="gru",
                  use_antialiasing=False, time_embedding=None):
         super().__init__()
-        if precoding is not None:
-            raise NotImplementedError("precoding is not ported yet")
+        self.precoding = precoding  # a transform of models/transforms.py, or None
         if time_embedding == "simple":
             self.sigma_block = SimpleTimeEmbedding(n_dim=noise_cond_dim)
         else:
@@ -147,13 +146,19 @@ class ScoreNetwork(nn.Module):
 
     def forward(self, x: torch.Tensor, sigma: torch.Tensor,
                 cond: Sequence[torch.Tensor]) -> torch.Tensor:
-        """x: (B, T, C), sigma: (B,), cond: per-stage tensors (coarse to fine)."""
+        """x: (B, T, C), sigma: (B,), cond: per-stage tensors (coarse to fine).
+        With ``precoding`` the network runs on the transform of x and its
+        output is transformed back."""
         n_samples = x.shape[1]
+        if self.precoding is not None:
+            x = self.precoding(x)
         g = self.sigma_block(torch.log10(sigma))
         x = self.input_conv(x)
         h, residuals, lengths = self.encoder(x, g)
         s = self.decoder(h, g, cond, residuals, lengths)
         s = self.output_conv(self.prelu(s))
+        if self.precoding is not None:
+            s = self.precoding.inv(s)
         if s.shape[1] < n_samples:
             s = F.pad(s, (0, 0, 0, n_samples - s.shape[1]))
         return s

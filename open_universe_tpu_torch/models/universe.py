@@ -1,17 +1,22 @@
-"""The UNIVERSE(++) diffusion model: the sampler and the time sampling of
-training (JAX package ``models/universe.py``).
+"""The UNIVERSE(++) diffusion model: the sampler, the time sampling and the
+losses of training (JAX package ``models/universe.py``).
 
 ``Universe.enhance`` runs the conditioner once and the score network
 ``n_steps`` times (EDM fast path, or the generic score path), in inference
 scope and without autograd, so eligible ConvBlocks take the fused kernel.
 It takes every argument of the JAX package's ``enhance`` but ``packed``:
 ensembles (mean, median, signal_median), warm start, ``use_aux_signal`` and
-the fake-score probe (``target``).  ``sample_sigma`` draws training's
-(sigma, time) in all six modes, ``adaptive`` from validation's histogram of
-score losses by time bin, and ``compute_losses(train=False)`` is
-validation's score loss in one time bin.  Not ported yet: non-identity
-transforms and the MDN training losses of the plain UNIVERSE
-(``compute_losses(train=True)``).
+the fake-score probe (``target``).  A ``transform`` (``models/transforms.py``)
+maps the normalised waveforms into the networks' domain and the sampler's
+result back.  ``sample_sigma`` draws training's (sigma, time) in all six
+modes, ``adaptive`` from validation's histogram of score losses by time bin.
+``compute_losses(train=False)`` is validation's score loss in one time bin;
+``compute_losses(train=True)`` adds the plain UNIVERSE's two mixture-density
+losses (``models/mdn.py``): the conditioner's auxiliary signal against the
+target, its latent against the target's mel spectrogram, each skipped when
+not finite (``finite_or_skip``).  ``training_losses`` is the score-only
+training step's objective (``train/steps.py::TrainStep``).  Not ported:
+bf16 training (``training.compute_dtype``) and ``remat``.
 """
 from __future__ import annotations
 
@@ -27,7 +32,9 @@ from ..utils.norm import normalize_batch
 from ..utils.random import center_truncated_normal
 from ..utils.stats import signal_median
 from .condition import ConditionerNetwork
+from .mdn import MixtureDensityNetworkLoss
 from .score import ScoreNetwork
+from .transforms import IdentityTransform
 
 
 def _cfg(d: Optional[Dict[str, Any]], **defaults) -> Dict[str, Any]:
@@ -37,12 +44,19 @@ def _cfg(d: Optional[Dict[str, Any]], **defaults) -> Dict[str, Any]:
     return out
 
 
-class IdentityTransform(nn.Module):
-    """The identity waveform transform (reference layers/dyn_range_comp.py),
-    the only one ported."""
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x
+def finite_or_skip(loss_fn, est: torch.Tensor):
+    """The reference's skip of a non-finite loss (universe.py:526-539)
+    without a host sync: ``bad`` stays on the device.  A plain ``where`` on
+    the loss would still send NaN back (its zero gradient times the NaN
+    partials of the bad forward), so the loss is recomputed at zeroed
+    estimates where it is not finite, whose partials are finite, and gated
+    out of the total.  Returns (the term for the total, the raw value for
+    the metrics)."""
+    with torch.no_grad():
+        raw = loss_fn(est.detach())
+    bad = ~torch.isfinite(raw)
+    safe = loss_fn(torch.where(bad, torch.zeros_like(est), est))
+    return torch.where(bad, torch.zeros_like(safe), safe), raw
 
 
 class Universe(nn.Module):
@@ -61,14 +75,12 @@ class Universe(nn.Module):
                  optimizer: Optional[dict] = None,
                  scheduler: Optional[dict] = None,
                  grad_clipper: Optional[dict] = None,
+                 with_noise_target: bool = False,
                  detach_cond: bool = False):
         """The training nodes (losses .. grad_clipper) of a config are kept
-        as dicts for the trainer; a model built for inference has none."""
+        as dicts for the trainer; a model built for inference has none, and
+        so no loss modules (``init_losses``)."""
         super().__init__()
-        if transform is not None and not isinstance(transform, IdentityTransform):
-            raise NotImplementedError(
-                f"{type(transform).__name__} is not ported; only the identity "
-                "transform is")
         self.fs = fs
         self.normalization_norm = normalization_norm
         self.normalization_kwargs = _cfg(normalization_kwargs)
@@ -81,14 +93,60 @@ class Universe(nn.Module):
         self.edm_kwargs = _cfg(edm) if edm else {}
         self.n_channels = self.score_model.n_channels
         self.tot_ds = math.prod(self.score_model.rate_factors)
+        self.latent_n_channels = 2 ** len(self.score_model.rate_factors) * self.n_channels
+        self.transform = transform if transform is not None else IdentityTransform()
+        self.with_noise_target = with_noise_target
         self.detach_cond = detach_cond
-        self.losses_kwargs = _cfg(losses)
+        self.losses_kwargs = _cfg(losses, weights={"score": 1.0, "signal": 1.0,
+                                                   "latent": 1.0},
+                                  mdn_n_comp=3, mdn_alpha_per_sample=True)
         self.train_kwargs = _cfg(training, audio_len=2.0, time_sampling="time_uniform",
                                  dynamic_mixing=False, ema_decay=0.999)
         self.val_kwargs = _cfg(validation)
         self.opt_kwargs = optimizer
         self.schedule_kwargs = scheduler
         self.grad_clip_kwargs = grad_clipper
+        self.loss_signal = self.loss_latent = None
+        self.built_for_training = losses is not None
+        if self.built_for_training:
+            self.init_losses()
+
+    def _refuse_unported(self):
+        for key, what in ((self.train_kwargs.get("compute_dtype"), "bf16 training"),
+                          (self.train_kwargs.get("remat"), "remat")):
+            if key:
+                raise NotImplementedError(f"{what} is not ported (ROADMAP queue 1)")
+
+    def init_losses(self):
+        """The two mixture-density losses of the weights that are > 0: the
+        signal's on the conditioner's auxiliary output against the target
+        (and the noise, with ``with_noise_target``), the latent's on its
+        bottleneck against the target's mel spectrogram."""
+        self._refuse_unported()
+        lk = self.losses_kwargs
+        weights = lk.get("weights", {})
+        cond_in = self.condition_model.input_channels
+        num_targets = 2 if self.with_noise_target else 1
+        audio_len = self.train_kwargs["audio_len"]
+        if weights.get("signal", 0.0) > 0.0:
+            self.loss_signal = MixtureDensityNetworkLoss(
+                est_channels=self.n_channels, tgt_channels=cond_in * num_targets,
+                n_comp=lk.get("mdn_n_comp", 3), sampling_rate=self.fs // cond_in,
+                sample_len_s=audio_len,
+                alpha_per_sample=lk.get("mdn_alpha_per_sample", False))
+        if weights.get("latent", 0.0) > 0.0:
+            self.loss_latent = MixtureDensityNetworkLoss(
+                est_channels=self.latent_n_channels,
+                tgt_channels=self.condition_model.n_mels * num_targets,
+                n_comp=lk.get("mdn_n_comp", 3),
+                sampling_rate=self.fs // (cond_in * self.tot_ds), sample_len_s=audio_len,
+                alpha_per_sample=lk.get("mdn_alpha_per_sample", False))
+
+    def loss_param_keys(self):
+        """Sub-modules that only training's losses use (an evaluation copy
+        leaves them out)."""
+        return tuple(k for k in ("loss_signal", "loss_latent")
+                     if getattr(self, k) is not None)
 
     def model_param_keys(self):
         """Sub-modules whose parameters a checkpoint's EMA shadow covers, in
@@ -210,29 +268,98 @@ class Universe(nn.Module):
                        t_min: float = 0.0, t_max: float = 1.0,
                        generator: Optional[torch.Generator] = None,
                        u: Optional[torch.Tensor] = None,
-                       z: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """The score loss mean((sigma score(x_t) + z)^2) on amplitude-
-        normalised (B, T, C) inputs, sigma drawn with ``time_sampling`` in
-        [t_min, t_max] (JAX ``Universe.compute_losses(train=False)``, the
-        loss validation bins by time).  The draws (sigma's uniform ``u``,
-        the noise ``z`` shaped like ``target``) come from ``generator``
-        unless given.  ``train=True``, the MDN training losses of the plain
-        UNIVERSE, is not ported (ROADMAP queue 1 item 12)."""
-        if train:
-            raise NotImplementedError("the plain UNIVERSE's training losses "
-                                      "are not ported (ROADMAP queue 1 item 12)")
-        # the transform is the identity (the only one ported)
-        sigma, _ = self.sample_sigma(mix.shape[0], time_sampling, t_min, t_max,
-                                     generator=generator, u=u, device=mix.device)
+                       z: Optional[torch.Tensor] = None,
+                       pr_cum: Optional[torch.Tensor] = None,
+                       bins: Optional[torch.Tensor] = None,
+                       dice: Optional[torch.Tensor] = None):
+        """The losses on amplitude-normalised (B, T, C) inputs (JAX
+        ``Universe.compute_losses``), sigma drawn with ``time_sampling`` in
+        [t_min, t_max].  The draws (sigma's uniform ``u``, adaptive's bin
+        draws ``dice``, the noise ``z`` shaped like the transformed target)
+        come from ``generator`` unless given.
+
+        train=False: the score loss mean((sigma score(x_t) + z)^2), the loss
+        validation bins by time.  train=True: (loss, score loss, signal MDN
+        loss, latent MDN loss, time), the loss their sum by
+        ``losses.weights``, each MDN term skipped where it is not finite (its
+        raw value is returned).  With ``with_noise_target`` the MDN targets
+        hold the noise (mix - target) beside the target."""
+        mix_trans, tgt_trans = self.transform(mix), self.transform(target)
+        sigma, time = self.sample_sigma(mix.shape[0], time_sampling, t_min, t_max,
+                                        generator=generator, u=u, device=mix.device,
+                                        pr_cum=pr_cum, bins=bins, dice=dice)
         if z is None:
-            z = torch.randn(target.shape, generator=generator, device=target.device)
-        z = torch.as_tensor(z, dtype=target.dtype, device=target.device)
-        x_t = target + sigma[:, None, None] * z
-        cond, _, _ = self._cond_train(mix, mix)
+            z = torch.randn(tgt_trans.shape, generator=generator, device=tgt_trans.device)
+        z = torch.as_tensor(z, dtype=tgt_trans.dtype, device=tgt_trans.device)
+        x_t = tgt_trans + sigma[:, None, None] * z
+        cond, y_est, h_est = self._cond_train(mix_trans, mix)
         if self.detach_cond:
             cond = [c.detach() for c in cond]
         score = self.score(x_t, sigma, cond)
-        return torch.mean(torch.square(sigma[:, None, None] * score.float() + z.float()))
+        l_score = torch.mean(torch.square(sigma[:, None, None] * score.float() + z.float()))
+        if not train:
+            return l_score
+
+        if self.with_noise_target:
+            noise = mix - target
+            target_aux = torch.cat((target, noise), dim=-1)
+            target_aux_trans = torch.cat((tgt_trans, self.transform(noise)), dim=-1)
+        else:
+            target_aux, target_aux_trans = target, tgt_trans
+        weights = self.losses_kwargs["weights"]
+        l_latent_term = l_latent = l_signal_term = l_signal = l_score.new_zeros(())
+        if weights.get("latent", 0.0) > 0.0 and h_est is not None:
+            mel_target = self._mel_target(target_aux)
+            l_latent_term, l_latent = finite_or_skip(
+                lambda e: self._loss_module("latent")(e, mel_target), h_est)
+        if weights.get("signal", 0.0) > 0.0:
+            l_signal_term, l_signal = finite_or_skip(
+                lambda e: self._loss_module("signal")(e, target_aux_trans), y_est)
+        loss = (weights.get("score", 1.0) * l_score
+                + weights.get("signal", 0.0) * l_signal_term
+                + weights.get("latent", 0.0) * l_latent_term)
+        return loss, l_score, l_signal, l_latent, time
+
+    def _loss_module(self, name: str) -> MixtureDensityNetworkLoss:
+        module = getattr(self, "loss_" + name)
+        if module is None:
+            raise RuntimeError(f"the model was built without its {name} loss "
+                               "(configs/registry.py::instantiate_trainable)")
+        return module
+
+    def _mel_target(self, target_aux: torch.Tensor) -> torch.Tensor:
+        """The latent loss's target: the target's mel spectrogram over its
+        own norm (floored at 1e-5)."""
+        mel = self.condition_model.input_mel.compute_mel_spec(target_aux)
+        norm = torch.sqrt(torch.sum(mel**2, dim=(-2, -1), keepdim=True))
+        return mel / torch.clamp(norm, min=1e-5)
+
+    def training_losses(self, mix: torch.Tensor, target: torch.Tensor,
+                        generator: Optional[torch.Generator] = None,
+                        draws: Optional[Dict[str, Any]] = None,
+                        pr_cum: Optional[torch.Tensor] = None,
+                        bins: Optional[torch.Tensor] = None):
+        """The score-only step's objective on a raw (B, T, C) batch (JAX
+        ``Universe.training_losses``): ``dynamic_mixing`` (the noise of the
+        batch permuted), normalisation, ``compute_losses(train=True)`` in
+        ``training.time_sampling`` (``adaptive`` with validation's
+        histogram ``pr_cum``/``bins``).  ``draws`` gives the random draws:
+        "perm" the permutation, "u", "dice" and "z" as compute_losses takes
+        them; the rest come from ``generator``.  Returns (loss, metrics)."""
+        draws = draws or {}
+        if self.train_kwargs.get("dynamic_mixing", False):
+            perm = draws.get("perm")
+            if perm is None:
+                perm = torch.randperm(mix.shape[0], generator=generator, device=mix.device)
+            mix = target + (mix - target)[torch.as_tensor(perm, device=mix.device)]
+        (mix, target), *_ = self.normalize_batch((mix, target))
+        loss, l_score, l_signal, l_latent, t = self.compute_losses(
+            mix, target, train=True, time_sampling=self.train_kwargs["time_sampling"],
+            generator=generator, u=draws.get("u"), z=draws.get("z"),
+            pr_cum=pr_cum, bins=bins, dice=draws.get("dice"))
+        metrics = {"train/loss": loss, "train/score": l_score, "train/signal": l_signal,
+                   "train/latent": l_latent, "train/time_mean": torch.mean(t.float())}
+        return loss, metrics
 
     def _cond_train(self, mix_trans: torch.Tensor, mix_wav: torch.Tensor):
         """The conditioner's training forward: (conditions, y_hat, h)."""
@@ -293,7 +420,8 @@ class Universe(nn.Module):
         while the sampler state, normalisation and the STFT stay float32.
         generator: draws the sampler noise (on the model's device).
         noise: the draws themselves, replacing the generator, each of shape
-        (E*B, T_padded, C) (E = 1 without an ensemble, rows member-major):
+        (E*B, T_padded, C) (E = 1 without an ensemble, rows member-major;
+        with a transform, the shape of the transformed padded mix):
         the initial draw, one per sampler step (n_steps - 1 - warm_start),
         then with ``target`` one per probe call (n_steps - warm_start).
         With ``use_aux_signal`` there are none.
@@ -337,6 +465,10 @@ class Universe(nn.Module):
             target, _ = self.pad(target, pad=pad)
         (mix, target), *_ = self.normalize_batch((mix, target))
         mix_wav = mix
+        # the sampler runs in the transform's domain (the identity by default)
+        mix = self.transform(mix)
+        if target is not None:
+            target = self.transform(target)
         score_snr = 5.0 if fake_score_snr is None else fake_score_snr
 
         # sampler coefficients (reference universe.py:300-311)
@@ -394,9 +526,11 @@ class Universe(nn.Module):
                     if target is None:
                         return self.score(x.to(net_dtype), s.to(net_dtype),
                                           cond).float()
-                    # the fake-score probe, against the target in the
-                    # sampler's domain (JAX's fix of reference
-                    # universe.py:276, which discards the transformed target)
+                    # the fake-score probe, against the TRANSFORMED target:
+                    # x lives in the transform's domain (JAX's fix of
+                    # reference universe.py:276, which transforms the
+                    # target but discards the result, so with a transform
+                    # its probe mixes domains)
                     true_score = -(x - target) / s[:, None, None] ** 2
                     score_rms = torch.sqrt(torch.mean(true_score**2))
                     return true_score + probe * (score_rms * 10.0 ** (-score_snr / 20.0))
@@ -409,7 +543,7 @@ class Universe(nn.Module):
                 score = score_fn(x, sigma[-1], probes[-1] if probes else None)
                 x = x + sigma[-1] ** 2 * score
 
-        x = self.unpad(x, pad)
+        x = self.unpad(self.transform(x, inv=True), pad)
         if x.shape[1] < mix_len:
             x = F.pad(x, (0, 0, 0, mix_len - x.shape[1]))
         if keep_rms:

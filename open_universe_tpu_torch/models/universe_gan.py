@@ -49,21 +49,20 @@ class UniverseGAN(Universe):
                 act_type=signal_decoupling_act)
         else:
             self.signal_decoupling_layer = None
-        if kwargs.get("losses") is not None:
-            self.init_losses()
 
     def init_losses(self):
+        """The discriminators, in place of the plain UNIVERSE's MDN losses
+        (called by ``Universe.__init__`` when the model is built with its
+        ``losses`` node)."""
+        self._refuse_unported()
         lk = self.losses_kwargs
+        if lk.get("aux_loss") or lk.get("aux_loss_module"):
+            raise NotImplementedError("the auxiliary loss module is not ported "
+                                      "(ROADMAP queue 1)")
         self.loss_mpd = MultiPeriodDiscriminator(lk.get("multi_period_discriminator", {}))
         self.loss_mrd = MultiResolutionDiscriminator(
             lk.get("multi_resolution_discriminator", {}))
         self.disc_freeze_step = lk.get("disc_freeze_step", 0)
-        for key, what in ((lk.get("aux_loss") or lk.get("aux_loss_module"),
-                           "the auxiliary loss module"),
-                          (self.train_kwargs.get("compute_dtype"), "bf16 training"),
-                          (self.train_kwargs.get("remat"), "remat")):
-            if key:
-                raise NotImplementedError(f"{what} is not ported (ROADMAP queue 1)")
 
     def model_param_keys(self):
         keys = ("score_model", "condition_model")
@@ -78,6 +77,9 @@ class UniverseGAN(Universe):
 
     def disc_param_keys(self):
         return ("loss_mpd", "loss_mrd")
+
+    def loss_param_keys(self):
+        return self.disc_param_keys()
 
     def aux_to_wav(self, y_aux: torch.Tensor) -> torch.Tensor:
         if self.signal_decoupling_layer is not None:
@@ -95,22 +97,24 @@ class UniverseGAN(Universe):
         inputs, with autograd's graph kept for the generator's backward.
         sigma comes from uniform draws ``u`` (and, in ``adaptive`` time
         sampling with validation's histogram ``pr_cum``/``bins``, the bin
-        draws ``dice``) and the score's noise is ``z`` (B, T, 1): all drawn
-        from ``generator`` unless given."""
+        draws ``dice``) and the score's noise is ``z`` (shaped like the
+        transformed target): all drawn from ``generator`` unless given."""
         sigma, time = self.sample_sigma(mix.shape[0], self.train_kwargs["time_sampling"],
                                         generator=generator, u=u, device=mix.device,
                                         pr_cum=pr_cum, bins=bins, dice=dice)
-        # the transform is the identity (the only one ported)
+        mix_t, target_t = self.transform(mix), self.transform(target)
         if z is None:
-            z = torch.randn(target.shape, generator=generator, device=mix.device)
-        z = torch.as_tensor(z, dtype=target.dtype, device=mix.device)
-        x_t = target + sigma[:, None, None] * z
+            z = torch.randn(target_t.shape, generator=generator, device=mix.device)
+        z = torch.as_tensor(z, dtype=target_t.dtype, device=mix.device)
+        x_t = target_t + sigma[:, None, None] * z
 
-        cond, y_est, _ = self._cond_train(mix, mix)
+        # the JAX package's conditioner takes the transformed mix as its
+        # waveform input too
+        cond, y_est, _ = self._cond_train(mix_t, mix_t)
         if self.detach_cond:
             cond = [c.detach() for c in cond]
         score = self.score(x_t, sigma, cond)
-        y_est = self.aux_to_wav(y_est)
+        y_est = self.transform(self.aux_to_wav(y_est), inv=True)
         mel = self.condition_model.input_mel.compute_mel_spec
         return {"y_est": y_est, "score": score, "sigma": sigma, "z": z,
                 "mel_y_est": mel(y_est), "mel_target": mel(target_original),

@@ -1,4 +1,5 @@
-"""Leaf layers: Conv1d, ConvTranspose1d, Linear, Conv2d, PReLU, GRU.
+"""Leaf layers: Conv1d, ConvTranspose1d, Linear, Conv2d, PReLU, GRU,
+LayerNorm.
 
 Data is (batch, time, channels) as in the JAX package (``Conv2d``, the
 discriminators' layer, takes NCHW where JAX takes NHWC); parameters are in
@@ -252,6 +253,27 @@ class GRU(nn.GRU):
         out, _ = torch.gru(x, h0, weights, True, self.num_layers, 0.0, train,
                            self.bidirectional, True)
         return out
+
+
+class LayerNorm(nn.Module):
+    """torch.nn.LayerNorm over the trailing ``shape`` dims, affine
+    elementwise (weight 1, bias 0 at init), eps 1e-5."""
+
+    def __init__(self, shape, eps: float = 1e-5):
+        super().__init__()
+        self.shape = (shape,) if isinstance(shape, int) else tuple(shape)
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(self.shape))
+        self.bias = nn.Parameter(torch.zeros(self.shape))
+
+    @torch.no_grad()
+    def seed_parameters(self, generator: torch.Generator):
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x, self.shape, self.weight.to(x.dtype),
+                            self.bias.to(x.dtype), self.eps)
 
 
 def init_weights(module: nn.Module, seed: int = 0) -> nn.Module:

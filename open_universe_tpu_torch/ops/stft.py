@@ -1,6 +1,7 @@
 """STFT / mel-spectrogram front-end (``torch.stft`` / torchaudio semantics:
 periodic Hann window, one-sided rFFT, power spectrum, HTK mel scale with
 ``norm=None``).  Input is (batch..., time); output (batch..., frames, freqs).
+``istft`` inverts ``stft`` by overlap-add (``torch.istft``'s semantics).
 """
 from __future__ import annotations
 
@@ -48,6 +49,37 @@ def stft(x: torch.Tensor, n_fft: int, hop: int,
         x = x.reshape(*lead, x.shape[-1])
     frames = frame(x, n_fft, hop) * window.to(x.dtype)
     return torch.fft.rfft(frames, dim=-1)
+
+
+def istft(z: torch.Tensor, n_fft: int, hop: int, length: Optional[int] = None,
+          window: Optional[torch.Tensor] = None, center: bool = True) -> torch.Tensor:
+    """Inverse STFT: complex (..., n_frames, n_fft // 2 + 1) -> (..., T), the
+    windowed frames overlap-added and divided by the overlap-added squared
+    window (floored at 1e-11).  With ``center`` the left n_fft // 2 samples
+    go; ``length`` cuts (or zero-pads) the right end, else the symmetric
+    n_fft // 2 goes too (JAX package ``ops/stft.py::istft``)."""
+    if window is None:
+        window = hann_window(n_fft, device=z.device)
+    window = window.to(device=z.device, dtype=torch.float32)
+    frames = torch.fft.irfft(z, n=n_fft, dim=-1) * window
+    n_frames = frames.shape[-2]
+    t_full = n_fft + hop * (n_frames - 1)
+    lead = frames.shape[:-2]
+    f2 = frames.reshape(-1, n_frames, n_fft).transpose(1, 2)  # (N, n_fft, frames)
+    out = F.fold(f2, (1, t_full), (1, n_fft), stride=(1, hop)).reshape(-1, t_full)
+    wsq = (window * window)[None, :, None].expand(1, n_fft, n_frames)
+    wsum = F.fold(wsq, (1, t_full), (1, n_fft), stride=(1, hop)).reshape(t_full)
+    out = out / torch.clamp(wsum, min=1e-11)
+    if center:
+        out = out[:, n_fft // 2:]
+    if length is not None:
+        if out.shape[-1] >= length:
+            out = out[:, :length]
+        else:
+            out = F.pad(out, (0, length - out.shape[-1]))
+    elif center:
+        out = out[:, : t_full - 2 * (n_fft // 2)]
+    return out.reshape(*lead, out.shape[-1])
 
 
 def spectrogram(x: torch.Tensor, n_fft: int, hop: int,

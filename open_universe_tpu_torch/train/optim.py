@@ -12,7 +12,8 @@
   weights, then the learning rate, which the JAX package chains.
 * ``clip_by_norm_``: the JAX package's clipping rule, scale
   min(1, max / max(norm, 1e-12)) (not ``clip_grad_norm_``'s
-  max / (norm + 1e-6)); ``FixedClipper`` and ``AutoClipper`` use it.
+  max / (norm + 1e-6)); ``FixedClipper`` and ``AutoClipper`` use it, and
+  ``make_clipper`` builds one from a ``grad_clipper`` config node.
 """
 from __future__ import annotations
 
@@ -147,3 +148,16 @@ class AutoClipper:
         for g in grads:
             g.mul_(scale.to(g.dtype))
         return norm, clip
+
+
+def make_clipper(cfg: Optional[dict]):
+    """The clipper of a ``grad_clipper`` node (``max_norm``: fixed; ``p``:
+    AutoClip), or None."""
+    if not cfg:
+        return None
+    cfg = {k: v for k, v in cfg.items() if not k.startswith("_")}
+    if "max_norm" in cfg:
+        return FixedClipper(cfg["max_norm"])
+    if "p" in cfg:
+        return AutoClipper(cfg["p"], cfg.get("history_size", 10000))
+    raise ValueError(f"unknown clipper config {cfg}")

@@ -1,5 +1,13 @@
-"""The UNIVERSE++ GAN training step (JAX package
-``train/steps.py::make_gan_train_step``), in the reference's order:
+"""The training steps (JAX package ``train/steps.py``).
+
+``TrainStep`` is the plain UNIVERSE's score-only step
+(``make_train_step``): the loss of ``Universe.training_losses`` (the score
+loss plus the two MDN losses), its gradients for every parameter (the MDN
+loss modules' included), clipped by ``grad_clipper``'s clipper, one AdamW
+update, then EMA of the score and conditioner networks.
+
+``GANTrainStep`` is the UNIVERSE++ GAN step (``make_gan_train_step``), in
+the reference's order:
 
 1. one generator forward, its autograd graph kept;
 2. the discriminators' LSGAN loss on the detached ``y_est``, their
@@ -11,10 +19,12 @@
    the conditioner with the signal-decoupling layer), its update, then EMA.
 
 The ``disc_frozen`` variant, for the steps before ``disc_freeze_step``,
-leaves the discriminators out entirely.  With ``training.nan_guard`` a step
-whose losses or gradient norms are not finite is rolled back: parameters,
-optimizer states and EMA stay as they were, the step count moves on, and
-``train/update_skipped`` is 1.
+leaves the discriminators out entirely.
+
+With ``training.nan_guard`` a step whose loss or gradient norms are not
+finite is rolled back: parameters, optimizer states, EMA (and AutoClip's
+history) stay as they were, the step count moves on, and
+``train/update_skipped`` is 1.  Only then does a step wait for the device.
 
 The gradients of the last step stay in each parameter's ``.grad`` (after
 clipping) until the next step begins.
@@ -26,13 +36,80 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from ..models.universe import Universe
 from ..models.universe_gan import UniverseGAN
 from .ema import EMA
-from .optim import clip_by_norm_, set_lr
+from .optim import AutoClipper, clip_by_norm_, global_norm, set_lr
 
 
 def _params(model, keys):
     return [p for k in keys for p in getattr(model, k).parameters()]
+
+
+class TrainStep:
+    """Applies score-only steps to ``model`` (a plain UNIVERSE built with its
+    losses) in place.  ``opt`` updates every parameter of the model; ``lr``
+    maps its count of applied updates to its learning rate; ``clipper``
+    (``optim.make_clipper``) clips the gradients as one group.  ``step``
+    and ``updates`` count steps and applied updates."""
+
+    def __init__(self, model: Universe, opt: torch.optim.Optimizer,
+                 lr: Callable[[int], float], ema: Optional[EMA] = None,
+                 clipper=None):
+        self.model = model
+        self.opt, self.lr = opt, lr
+        self.ema = ema
+        self.clipper = clipper
+        self.nan_guard = bool(model.train_kwargs.get("nan_guard", False))
+        self.step = self.updates = 0
+
+    def __call__(self, batch: Dict[str, torch.Tensor],
+                 generator: Optional[torch.Generator] = None,
+                 draws: Optional[Dict[str, Any]] = None,
+                 adaptive: Optional[Dict[str, torch.Tensor]] = None
+                 ) -> Dict[str, torch.Tensor]:
+        """One step on ``batch`` ({"noisy", "clean"}: (B, T, 1) on the
+        model's device).  ``draws`` and ``adaptive`` as
+        ``GANTrainStep.__call__`` takes them.  Returns the step's metrics as
+        tensors."""
+        model = self.model
+        params = list(model.parameters())
+        for p in params:
+            p.grad = None
+        adaptive = adaptive or {}
+        loss, metrics = model.training_losses(
+            batch["noisy"], batch["clean"], generator, draws,
+            pr_cum=adaptive.get("pr_cum"), bins=adaptive.get("bins"))
+        loss.backward()
+        # a parameter the loss does not reach has a zero gradient, as in
+        # jax.grad: AdamW then still decays it
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in params]
+        # nothing is updated before the check but AutoClip's history
+        saved = (copy.deepcopy(self.clipper.__dict__)
+                 if self.nan_guard and isinstance(self.clipper, AutoClipper) else None)
+        if self.clipper is not None:
+            gnorm, clip = self.clipper(grads)
+            metrics["grad/norm"] = gnorm
+            metrics["grad/clipped_norm"] = torch.minimum(gnorm, clip.to(gnorm.device))
+        else:
+            metrics["grad/norm"] = global_norm(grads)
+        ok = True
+        if self.nan_guard:
+            ok = bool(torch.isfinite(torch.stack([loss.detach(), metrics["grad/norm"]])).all())
+            metrics["train/update_skipped"] = torch.tensor(0.0 if ok else 1.0)
+        if ok:
+            set_lr(self.opt, self.lr(self.updates))
+            self.opt.step()
+            self.updates += 1
+            if self.ema is not None:
+                self.ema.update()
+        elif saved is not None:
+            self.clipper.__dict__.update(saved)
+        self.step += 1
+        return {k: v.detach() for k, v in metrics.items()}
 
 
 class GANTrainStep:

@@ -1,23 +1,26 @@
-"""The training loop for UNIVERSE++ (the GAN branch of the JAX package's
+"""The training loop for the plain UNIVERSE and UNIVERSE++ (JAX package
 ``train/trainer.py``).
 
-``Trainer`` draws the model's weights from the seed, builds the two AdamW
-optimizers with the reference's schedule (``train/optim.py``), EMA and the
-GAN step (``train/steps.py``), and ``fit`` takes steps from the
-datamodule's train loader, runs the disc-frozen step before
+``Trainer`` draws the model's weights from the seed and builds its step
+(``train/steps.py``): for UNIVERSE++ the GAN step with two AdamW optimizers
+(generator, discriminators), each with the reference's schedule
+(``train/optim.py``); for the plain UNIVERSE the score-only step with one
+AdamW over every parameter (the MDN loss modules' included), one schedule
+and the ``grad_clipper``'s clipper; EMA for both.  ``fit`` takes steps from
+the datamodule's train loader, runs the disc-frozen GAN step before
 ``losses.disc_freeze_step``, logs every ``log_every`` steps (losses, step
 time, peak device memory) to the log and to ``metrics.jsonl`` in the run
 directory, validates every ``val_check_interval`` steps, and writes a
 checkpoint every ``checkpoint_every`` steps and at the end.
 
-Validation (``validate``) and ``test`` run on one copy of the generator per
-call with the EMA shadow as its weights and weight norm folded, without
-autograd, so every ConvBlock takes the fused kernel on the card.
-Validation: the score loss in each of ``validation.n_bins`` uniform time
-bins (``Universe.compute_losses(train=False)``), averaged over the val
-batches (``val/score``, ``val/score_<lo>-<hi>``; they feed the ``adaptive``
-time sampling's histogram), then ``enhance`` and the metric suite of
-``validation.enh_losses`` (``metrics.EvalMetrics``: ``val/lsd``,
+Validation (``validate``) and ``test`` run on one copy of the model per call
+(its loss modules left out) with the EMA shadow as its weights and weight
+norm folded, without autograd, so every ConvBlock takes the fused kernel on
+the card.  Validation: the score loss in each of ``validation.n_bins``
+uniform time bins (``Universe.compute_losses(train=False)``), averaged over
+the val batches (``val/score``, ``val/score_<lo>-<hi>``; they feed the
+``adaptive`` time sampling's histogram), then ``enhance`` and the metric
+suite of ``validation.enh_losses`` (``metrics.EvalMetrics``: ``val/lsd``,
 ``val/pesq``) on the first ``max_enh_batches`` batches.  Clips are
 zero-padded to ``validation.bucket_seconds`` after normalisation.  The
 draws come from a generator seeded with the reference's validation seed,
@@ -26,19 +29,21 @@ or from ``draws``.  ``test`` enhances the test split and writes
 schema) to the run directory.
 
 Checkpoints, ``checkpoints/step_<n>.ckpt``, are in the reference's layout:
-``state_dict`` (discriminators included), the EMA shadow list in
+``state_dict`` (loss modules included), the EMA shadow list in
 ``inference/model_loader.py::ordered_param_names`` order, and, under
-Lightning's key names, ``optimizer_states`` (generator, discriminators) and
-``lr_schedulers`` (each optimizer's count of updates, on which its learning
-rate depends); the run's config is beside them as ``config.yaml``, where
-``load_model`` looks.  ``last.json`` points at the newest checkpoint,
-``index.json`` lists every checkpoint with the newest validation's
-``validation.main_loss`` and ``best.json`` the best of them by
-``main_loss_mode``.  ``restore`` (``fit(resume_from=...)``) resumes from a
-``.ckpt`` or a run directory's ``last.json``; the resumed run restarts its
-loader and its generator from the seed, as the JAX trainer does.
+Lightning's key names, ``optimizer_states`` (one per optimizer: the
+generator's, then the discriminators') and ``lr_schedulers`` (each
+optimizer's count of updates, on which its learning rate depends); the
+run's config is beside them as ``config.yaml``, where ``load_model``
+looks.  ``last.json`` points at the newest checkpoint, ``index.json`` lists
+every checkpoint with the newest validation's ``validation.main_loss`` and
+``best.json`` the best of them by ``main_loss_mode``.  ``restore``
+(``fit(resume_from=...)``) resumes from a ``.ckpt`` or a run directory's
+``last.json``; the resumed run restarts its loader and its generator from
+the seed, as the JAX trainer does, and AutoClip's history (the plain
+UNIVERSE's ``grad_clipper: {p: ...}``) empty.
 
-Not ported (ROADMAP queue 1): the enhancement family's validation, gradient
+Not ported (ROADMAP queue 1): the enhancement family and LoRA, gradient
 accumulation and multi-device training.
 """
 from __future__ import annotations
@@ -57,13 +62,14 @@ import torch.nn.functional as F
 import yaml
 
 from ..inference.model_loader import ordered_param_names
+from ..models.universe import Universe
 from ..models.universe_gan import UniverseGAN
 from ..nn.layers import init_weights
 from ..utils.convert import fold_weight_norm
 from ..utils.device import resolve_device
 from .ema import EMA
-from .optim import adamw, build_schedule
-from .steps import GANTrainStep
+from .optim import adamw, build_schedule, make_clipper
+from .steps import GANTrainStep, TrainStep
 
 log = logging.getLogger(__name__)
 
@@ -75,8 +81,7 @@ def make_gan_step(model: UniverseGAN, max_steps: int) -> GANTrainStep:
     generator (weight decay by name) and for the discriminators, each with
     its schedule, and EMA from the current weights."""
     opt = model.opt_kwargs or {}
-    if opt.get("accumulate_grad_batches", 1) not in (None, 1):
-        raise NotImplementedError("gradient accumulation is not ported (ROADMAP queue 1)")
+    _refuse_accumulation(opt)
     gen_cfg, disc_cfg = opt.get("generator", {}), opt.get("discriminator", {})
     sch = model.schedule_kwargs or {}
     freeze = model.disc_freeze_step
@@ -106,17 +111,55 @@ def make_gan_step(model: UniverseGAN, max_steps: int) -> GANTrainStep:
         grad_clip_vals=opt.get("grad_clip_vals", {}))
 
 
+def _refuse_accumulation(opt: dict) -> None:
+    if opt.get("accumulate_grad_batches", 1) not in (None, 1):
+        raise NotImplementedError("gradient accumulation is not ported (ROADMAP queue 1)")
+
+
+def make_train_step(model: Universe, max_steps: int) -> TrainStep:
+    """The score-only step of a plain UNIVERSE's config as it stands: one
+    AdamW over every parameter (weight decay by name), its schedule, the
+    ``grad_clipper``'s clipper and EMA from the current weights (JAX
+    ``Trainer._setup``'s non-GAN branch)."""
+    opt = dict(model.opt_kwargs or {})
+    _refuse_accumulation(opt)
+    optimizer = adamw(model.named_parameters(), betas=opt.get("betas", (0.8, 0.99)),
+                      weight_decay=opt.get("weight_decay", 0.0),
+                      weight_decay_exclude=opt.get("weight_decay_exclude", ("prelu", "bias")))
+    ema_decay = model.train_kwargs.get("ema_decay", 0.0)
+    return TrainStep(model, optimizer,
+                     build_schedule(model.schedule_kwargs, opt.get("lr", 2e-4), max_steps),
+                     ema=EMA(model, ema_decay) if ema_decay > 0.0 else None,
+                     clipper=make_clipper(model.grad_clip_kwargs))
+
+
+def make_step(model: Universe, max_steps: int):
+    """The training step of ``model``: the GAN step for UNIVERSE++, the
+    score-only step for the plain UNIVERSE."""
+    if isinstance(model, UniverseGAN):
+        return make_gan_step(model, max_steps)
+    return make_train_step(model, max_steps)
+
+
+def optimizers(step_fn):
+    """(optimizer, name of its update counter) of a step, in checkpoint
+    order."""
+    if isinstance(step_fn, GANTrainStep):
+        return [(step_fn.opt_gen, "gen_updates"), (step_fn.opt_disc, "disc_updates")]
+    return [(step_fn.opt, "updates")]
+
+
 class Trainer:
-    def __init__(self, model: UniverseGAN, datamodule, output_dir,
+    def __init__(self, model: Universe, datamodule, output_dir,
                  max_steps: int = 600_000, val_check_interval: int = 5000,
                  seed: int = 0, log_every: int = 25,
                  checkpoint_every: Optional[int] = None,
                  max_val_batches: Optional[int] = None,
                  config: Optional[dict] = None, device=None):
-        if not isinstance(model, UniverseGAN) or not hasattr(model, "loss_mpd"):
+        if not isinstance(model, Universe) or not model.built_for_training:
             raise NotImplementedError(
-                "the port trains a UniverseGAN built with its losses "
-                "(configs/registry.py::instantiate_trainable) only")
+                "the port trains a Universe or UniverseGAN built with its training "
+                "nodes (configs/registry.py::instantiate_trainable) only")
         self.model = model
         self.dm = datamodule
         self.output_dir = Path(output_dir)
@@ -141,7 +184,7 @@ class Trainer:
         from ..configs.registry import instantiate
 
         init_weights(self.model, self.seed).to(self.device).train()
-        self.step_fn = make_gan_step(self.model, self.max_steps)
+        self.step_fn = make_step(self.model, self.max_steps)
         self.ema = self.step_fn.ema
         # the metric suite of validation and test (EvalMetrics by default)
         self.enh_losses = {}
@@ -165,9 +208,9 @@ class Trainer:
         with open(self.output_dir / "metrics.jsonl", "a") as f:
             f.write(json.dumps(row) + "\n")
         if "perf/step_time_s" in row:
-            log.info("step %d loss_gen %.4f loss_disc %.4f (%.3f s/step, peak %.2f GiB)",
-                     step, row.get("train/loss_gen", float("nan")),
-                     row.get("train/loss_disc", float("nan")),
+            losses = " ".join(f"{k[6:]} {row[k]:.4f}" for k in (
+                "train/loss", "train/loss_gen", "train/loss_disc") if k in row)
+            log.info("step %d %s (%.3f s/step, peak %.2f GiB)", step, losses,
                      row["perf/step_time_s"], row.get("perf/peak_mem_gib", 0.0))
 
     def _sync(self):
@@ -197,8 +240,9 @@ class Trainer:
                      for k in ("noisy", "clean")}
                 adaptive = ({"pr_cum": self.pr_cum, "bins": self.val_bins}
                             if self._adaptive_mode else None)
-                metrics = self.step_fn(b, generator=gen, adaptive=adaptive,
-                                       disc_frozen=step < self.model.disc_freeze_step)
+                kw = ({"disc_frozen": step < self.model.disc_freeze_step}
+                      if isinstance(self.step_fn, GANTrainStep) else {})
+                metrics = self.step_fn(b, generator=gen, adaptive=adaptive, **kw)
                 step += 1
                 if step % self.log_every == 0 or step == self.max_steps:
                     metrics = {k: float(v) for k, v in metrics.items()}
@@ -216,18 +260,21 @@ class Trainer:
                     self._log({**self._last_val, **self.val_timing}, step)
                     t0 += time.perf_counter() - t_val  # not a step's time
                 if step % self.checkpoint_every == 0 and step != self.max_steps:
+                    t_save = time.perf_counter()
                     self.save(step)
+                    t0 += time.perf_counter() - t_save  # not a step's time either
         self.save(step)
         return {k: float(v) for k, v in metrics.items()}
 
     # ------------------------------------------------------------------
-    def _eval_model(self) -> UniverseGAN:
-        """A copy of the generator (the discriminators left out) with the EMA
-        shadow as its weights, weight norm folded, in eval mode and without
-        gradients: the model validation and test run, whose ConvBlocks the
-        fused kernel takes."""
+    def _eval_model(self) -> Universe:
+        """A copy of the model (its loss modules left out: the
+        discriminators or the MDN losses) with the EMA shadow as its
+        weights, weight norm folded, in eval mode and without gradients: the
+        model validation and test run, whose ConvBlocks the fused kernel
+        takes."""
         m = self.model
-        skip = {id(getattr(m, k)): None for k in m.disc_param_keys()}
+        skip = {id(getattr(m, k)): None for k in m.loss_param_keys()}
         ev = copy.deepcopy(m, skip)
         for mod in ev.modules():
             if isinstance(mod, torch.nn.RNNBase):
@@ -422,15 +469,13 @@ class Trainer:
         then last.json, index.json and best.json."""
         step_fn = self.step_fn
         sd = {k: v.detach().cpu() for k, v in self.model.state_dict().items()}
+        opts = optimizers(step_fn)
         ckpt: Dict[str, Any] = {
             "state_dict": sd, "global_step": step,
-            "optimizer_states": [step_fn.opt_gen.state_dict(),
-                                 step_fn.opt_disc.state_dict()],
-            "lr_schedulers": [
-                {"updates": step_fn.gen_updates,
-                 "_last_lr": [g["lr"] for g in step_fn.opt_gen.param_groups]},
-                {"updates": step_fn.disc_updates,
-                 "_last_lr": [g["lr"] for g in step_fn.opt_disc.param_groups]}]}
+            "optimizer_states": [o.state_dict() for o, _ in opts],
+            "lr_schedulers": [{"updates": getattr(step_fn, count),
+                               "_last_lr": [g["lr"] for g in o.param_groups]}
+                              for o, count in opts]}
         if self.ema is not None:
             names = ordered_param_names(sd, self.model.model_param_keys())
             ckpt["ema"] = {"shadow_params": [self.ema.shadow[n].cpu() for n in names],
@@ -469,8 +514,8 @@ class Trainer:
                 json.dump(pick(scored, key=lambda e: e["value"]), f)
 
     def restore(self, path) -> int:
-        """Load the model (discriminators included), both optimizers'
-        states, their update counts, the EMA shadow and the step from a
+        """Load the model (loss modules included), the optimizers' states,
+        their update counts, the EMA shadow and the step from a
         checkpoint ``save`` wrote: the ``.ckpt`` ``path``, or the one a
         checkpoints dir's (or a run dir's) ``last.json`` points at; returns
         the step."""
@@ -485,10 +530,14 @@ class Trainer:
         ckpt = torch.load(p, map_location=self.device, weights_only=False)
         self.model.load_state_dict(ckpt["state_dict"])
         step_fn = self.step_fn
-        for opt, state in zip((step_fn.opt_gen, step_fn.opt_disc), ckpt["optimizer_states"]):
+        opts = optimizers(step_fn)
+        if len(ckpt["optimizer_states"]) != len(opts):
+            raise ValueError(f"{p} holds {len(ckpt['optimizer_states'])} optimizer "
+                             f"states; this model's step has {len(opts)}")
+        for (opt, count), state, sch in zip(opts, ckpt["optimizer_states"],
+                                            ckpt["lr_schedulers"]):
             opt.load_state_dict(state)
-        step_fn.gen_updates, step_fn.disc_updates = (
-            int(s["updates"]) for s in ckpt["lr_schedulers"])
+            setattr(step_fn, count, int(sch["updates"]))
         if self.ema is not None:
             names = ordered_param_names(ckpt["state_dict"], self.model.model_param_keys())
             with torch.no_grad():

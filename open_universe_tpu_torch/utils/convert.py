@@ -13,7 +13,9 @@ names); the leaves differ in layout, by these rules (the JAX package's
                                            Conv2d, (N, 1) linear
 
 The GAN's discriminators (``loss_mpd``, ``loss_mrd``) are Conv2d trees and
-carry over like the generator.
+carry over like the generator; so do the plain UNIVERSE's MDN losses
+(``loss_signal``, ``loss_latent``: a LayerNorm, whose leaves keep their
+layout, and a PReLUConv).  A transform has no parameters.
 
 ``fold_weight_norm`` replaces every (weight_g, weight_v) pair by its weight,
 as the inference loader does.

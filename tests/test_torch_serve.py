@@ -113,9 +113,15 @@ def test_registry_builds_reference_configs_and_names_what_it_lacks():
     assert type(instantiate({"_target_": "open_universe_tpu.layers.dyn_range_comp."
                                          "IdentityTransform"})).__name__ == \
         "IdentityTransform"
-    with pytest.raises(KeyError, match="CompressedMagSTFT"):
+    stft = {"_target_": "open_universe.layers.dyn_range_comp.CompressedMagSTFT",
+            "stft_kwargs": {"n_fft": 510, "hop_length": 128, "window_name": "hann"},
+            "spec_kwargs": {"transform_type": "exponent", "abs_exponent": 0.5,
+                            "factor": 0.15}}
+    assert type(instantiate({**SERVE_CFG, "transform": stft}).transform).__name__ == \
+        "CompressedMagSTFT"
+    with pytest.raises(KeyError, match="MultiResL1SpecLoss"):
         instantiate({**SERVE_CFG, "transform": {
-            "_target_": "open_universe.layers.dyn_range_comp.CompressedMagSTFT"}})
+            "_target_": "open_universe.losses.MultiResL1SpecLoss"}})
     bad = {**SERVE_CFG, "losses": {"score_loss": {"_target_": "torch.nn.L1Loss"}}}
     with pytest.raises(NotImplementedError, match="MSE"):
         instantiate(bad)

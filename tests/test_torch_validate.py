@@ -189,18 +189,30 @@ def test_compute_losses_matches_jax_in_each_bin(runs, bin_index, record_property
             z=np.asarray(jax.random.normal(k_noise, tuple(target.shape)))))
     record_property("rel_diff", float(_rel(got, want)))
     assert _rel(got, want) <= 1e-5
-    with pytest.raises(NotImplementedError, match="item 12"):
-        pt.model.compute_losses(mix, target, train=True)
+    # train=True: a UNIVERSE++ has no MDN losses (JAX's UniverseGAN
+    # overrides init_losses), so the tuple is (score, score, 0, 0, time)
+    want_t = [np.asarray(v) for v in _jax_loss(jm, train=True)(
+        runs["params"], key, jnp.asarray(mix.numpy()), jnp.asarray(target.numpy()), lo, hi)]
+    with torch.no_grad():
+        got_t = pt.model.compute_losses(
+            mix, target, train=True, t_min=lo, t_max=hi,
+            u=np.asarray(jax.random.uniform(k_sigma, (1,))),
+            z=np.asarray(jax.random.normal(k_noise, tuple(target.shape))))
+    for a, b in zip(got_t[:2], want_t[:2]):
+        assert _rel(float(a), float(b)) <= 1e-5
+    assert float(got_t[2]) == float(want_t[2]) == 0.0
+    assert float(got_t[3]) == float(want_t[3]) == 0.0
+    np.testing.assert_allclose(got_t[4].numpy(), want_t[4], atol=1e-6, rtol=0)
 
 
 _LOSS = {}
 
 
-def _jax_loss(jm):
-    if "fn" not in _LOSS:
-        _LOSS["fn"] = jax.jit(lambda p, k, m, t, lo, hi: jm.compute_losses(
-            p, k, m, t, train=False, time_sampling="time_uniform", t_min=lo, t_max=hi))
-    return _LOSS["fn"]
+def _jax_loss(jm, train=False):
+    if train not in _LOSS:
+        _LOSS[train] = jax.jit(lambda p, k, m, t, lo, hi: jm.compute_losses(
+            p, k, m, t, train=train, time_sampling="time_uniform", t_min=lo, t_max=hi))
+    return _LOSS[train]
 
 
 def test_adaptive_sample_sigma_matches_jax(runs, record_property):

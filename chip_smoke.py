@@ -133,9 +133,31 @@ Phases, each of which raises (exit code != 0) on failure:
    on the card (cuFFT, the overlap-add ``istft``) against the CPU, <= 1e-4
    of max|ref|.
 
+11. LoRA fine-tuning.  (a) The training entry point with
+   ``experiment=universepp_lora_finetune`` on phase 8a's full-width
+   checkpoint (``model.losses.phonemeloss=null``; rank 16, 8 sampler steps
+   with gradients in the last 2, the frozen MPD/MRD loss), batch 4 x 2 s
+   crops of 16 synthetic pairs, f32, PyTorch's TF32 defaults, 6 steps, a
+   checkpoint every 3, a validation at 6 (3 clips), then the test (2
+   clips): losses finite, 0 fused-kernel launches in the steps, the
+   validation and the test (adapters attached), frozen weights equal the
+   base checkpoint's bit for bit, the adapters moved; step times, peak
+   memory; (c) a run resumed from step 3 restores its state bit for bit.
+   (b) One LoRA step at a narrow width on the card against the CPU (same
+   weights, adapters and draws, TF32 off): losses <= 1e-4 relative,
+   gradients <= 1e-2 of each tensor's largest plus 1e-6 of the largest.
+   (d) ``load_model`` on the fine-tuned checkpoint (a UniverseLoRA):
+   ``enhance`` of 2 x 2 s launches 0; ``merge_lora``'s model launches 94
+   through both entries in f32 and bf16 and equals the adapters' (f32 <=
+   1e-4 of max|ref|); audio-s/s at batch 128 x 2 s, merged against
+   adapters, bf16 and f32; one file through the enhance CLI (0 launches).
+   (e) UNIVERSE++ with a MultiResL1SpecLoss aux loss whose warm-up (0,
+   0.5, 1) its 3 full-width steps (batch 8) cross, 0 launches; one narrow
+   step at aux weight 0.5 against the CPU with 8b's bounds.
+
 The last two lines are a JSON object with one entry per kernel (per-enhance
 sums; each shape's numbers are on the log lines of phases 3c, 4 and 4b; the
-CLI's launches per run of phase 7; phase 10's launches per path) and
+CLI's launches per run of phase 7; phase 10's and 11's launches per path) and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
 and prints no result.
 """
@@ -1365,8 +1387,11 @@ def tf32_losses(model, dm):
     return {"max_rel": rel[worst], "worst": worst, "on": losses[0], "off": losses[1]}
 
 
-def phase_train_step_vs_cpu():
-    """8b: one GAN step at a narrow width (NARROW_OVERRIDES) on the card and
+def phase_train_step_vs_cpu(extra=(), at_step=0, name="train-vs-cpu", grad_floor=0.0):
+    """8b: one GAN step at a narrow width (NARROW_OVERRIDES, plus ``extra``;
+    taken as step ``at_step``, which sets the aux loss's warm-up weight; 11e
+    adds ``grad_floor`` of each group's largest gradient to every tensor's
+    gradient bound, and counts elements below 100 times it as small) on the card and
     on the CPU from the same weights, batch and draws (sigma's uniform draws
     and the score's noise), TF32 off.  Bounds: losses relative <= 1e-5;
     every tensor's gradient <= 1e-2 of its largest, a one-element PReLU
@@ -1384,7 +1409,7 @@ def phase_train_step_vs_cpu():
     from open_universe_tpu_torch.nn.layers import init_weights
     from open_universe_tpu_torch.train.trainer import make_gan_step
 
-    cfg = compose(config_dir(), ["experiment=universepp_vb_16k", *NARROW_OVERRIDES])
+    cfg = compose(config_dir(), ["experiment=universepp_vb_16k", *NARROW_OVERRIDES, *extra])
     base = init_weights(instantiate_trainable(cfg["model"]), seed=3)
     rng = np.random.default_rng(4)
     clean = (0.05 * rng.standard_normal((2, NARROW_T, 1))).astype(np.float32)
@@ -1397,6 +1422,7 @@ def phase_train_step_vs_cpu():
                               ("card_tf32", DEVICE, True)):
         model = copy.deepcopy(base).to(device)
         step = make_gan_step(model, cfg["trainer"]["max_steps"])
+        step.step = at_step
         tf32_flags(tf32)
         try:
             m = step({k: torch.from_numpy(v).to(device) for k, v in batch.items()},
@@ -1410,11 +1436,15 @@ def phase_train_step_vs_cpu():
     loss_rel = {k: abs(m_card[k] - v) / max(abs(v), 1e-12)
                 for k, v in m_cpu.items() if k.startswith("train/")}
     grad_rel, delta_rel, small, failed = {}, {}, 0, []
+    top = {}
+    for n, (_, g_cpu) in cpu.items():
+        top[n.split(".")[0]] = max(top.get(n.split(".")[0], 0.0), g_cpu.abs().max().item())
     for n, (p_cpu, g_cpu) in cpu.items():
         p_card, g_card = card[n]
         scale = g_cpu.abs().max().item()
         grad_rel[n] = (g_card - g_cpu).abs().max().item() / max(scale, 1e-30)
-        if not grad_rel[n] <= (5e-2 if g_cpu.numel() == 1 else 1e-2):
+        floor = grad_floor * top[n.split(".")[0]] / max(scale, 1e-30)
+        if not grad_rel[n] <= (5e-2 if g_cpu.numel() == 1 else 1e-2) + floor:
             failed.append(f"gradient of {n}: {grad_rel[n]:.3e}")
         d_cpu, d_card = p_cpu - p0[n].detach(), p_card - p0[n].detach()
         if not d_cpu.abs().max() > 0:
@@ -1422,7 +1452,8 @@ def phase_train_step_vs_cpu():
         bound = 1e-3 * d_cpu.abs().max() + 2 * torch.finfo(torch.float32).eps * (
             p0[n].detach().abs() + d_cpu.abs())
         bad = (d_card - d_cpu).abs() > bound
-        tiny = (g_cpu.abs() < 1e-2 * scale) | (g_cpu.abs() < 1e-7)
+        tiny = ((g_cpu.abs() < 1e-2 * scale) | (g_cpu.abs() < 1e-7)
+                | (g_cpu.abs() < 1e2 * grad_floor * top[n.split(".")[0]]))
         small += int((bad & tiny).sum())
         if (bad & ~tiny).any():
             failed.append(f"update of {n}")
@@ -1440,13 +1471,13 @@ def phase_train_step_vs_cpu():
 
     worst_g = sorted(grad_rel.items(), key=lambda kv: -kv[1])[:8]
     worst_d = sorted(delta_rel.items(), key=lambda kv: -kv[1])[:8]
-    log(f"[train-vs-cpu] narrow step ({NARROW_OVERRIDES}, batch 2 x {NARROW_T}), TF32 off: "
+    log(f"[{name}] narrow step ({NARROW_OVERRIDES}, batch 2 x {NARROW_T}), TF32 off: "
         f"losses max rel {max(loss_rel.values()):.3e} ({max(loss_rel, key=loss_rel.get)})")
-    log(f"[train-vs-cpu] gradients, max|d| / max|g_cpu| per tensor by group: "
+    log(f"[{name}] gradients, max|d| / max|g_cpu| per tensor by group: "
         f"{summary(grad_rel)}; worst {worst_g}")
-    log(f"[train-vs-cpu] updates, per tensor (small-gradient elements aside, {small} "
+    log(f"[{name}] updates, per tensor (small-gradient elements aside, {small} "
         f"of {n_el} past 1e-3): {summary(delta_rel)}; worst {worst_d}")
-    log(f"[train-vs-cpu] card TF32 on vs off: losses max rel {tf32_rel:.3e}")
+    log(f"[{name}] card TF32 on vs off: losses max rel {tf32_rel:.3e}")
     if not max(loss_rel.values()) <= 1e-5 or small > 1e-2 * n_el or failed:
         raise AssertionError(f"card vs CPU step beyond its bounds: losses "
                              f"{max(loss_rel.values())}, small {small}, {failed[:8]}")
@@ -1752,7 +1783,6 @@ def phase_original_training():
 
     from open_universe_tpu_torch.ops import kernels
     from open_universe_tpu_torch.ops.kernels import conv_block
-    from open_universe_tpu_torch.train import trainer as ptrainer
     from open_universe_tpu_torch.train.__main__ import main as train_main
 
     tmp = tempfile.mkdtemp()
@@ -1771,38 +1801,21 @@ def phase_original_training():
             f"datamodule.train.dl_opts.batch_size={TRAIN_BATCH}",
             f"trainer.max_steps={ORIG_STEPS}", f"trainer.val_check_interval={ORIG_STEPS}",
             f"trainer.checkpoint_every={half}", "trainer.log_every=1", *ORIG_OVERRIDES]
-    calls, steps_launched = [], [0]
-    real_validate, real_test = ptrainer.Trainer.validate, ptrainer.Trainer.test
-
-    def counted(real, kind):
-        def run(self, step=None, draws=None):
-            steps_launched[0] += sum(conv_block.launches.values())
-            conv_block.launches.clear()
-            out = real(self, step, draws)
-            torch.cuda.synchronize()
-            calls.append({"kind": kind, "launches": dict(conv_block.launches),
-                          "timing": dict(self.val_timing) if kind == "validate" else {}})
-            conv_block.launches.clear()
-            return out
-        return run
-
-    ptrainer.Trainer.validate = counted(real_validate, "validate")
-    ptrainer.Trainer.test = counted(real_test, "test")
     tf32_flags(True)
     try:
-        trainer = train_main(args + ["train=false", f"path.exp_root={exp}/first"])
-        model = trainer.model
-        conv_block.launches.clear()
-        t0 = time.perf_counter()
-        trainer.fit()
-        torch.cuda.synchronize()
-        fit_s = time.perf_counter() - t0
-        steps_launched[0] += sum(conv_block.launches.values())
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        trainer.test()
+        with CountedEval() as counted:
+            trainer = train_main(args + ["train=false", f"path.exp_root={exp}/first"])
+            model = trainer.model
+            conv_block.launches.clear()
+            t0 = time.perf_counter()
+            trainer.fit()
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            trainer.test()
     finally:
         tf32_flags(False)
-        ptrainer.Trainer.validate, ptrainer.Trainer.test = real_validate, real_test
+    calls, steps_launched = counted.calls, [counted.steps]
     (run_dir,) = glob.glob(os.path.join(exp, "first", ORIG, "*"))
     with open(os.path.join(run_dir, "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
@@ -2074,6 +2087,392 @@ def phase_transform_vs_cpu():
     return out
 
 
+# phase 11: LoRA fine-tuning of phase 8's full-width checkpoint through the
+# entry point at the experiment's batch (4 x 2 s crops) on LORA_PAIRS pairs,
+# a validation at the last step on LORA_VAL_PAIRS clips of 1.3-2.5 s (batch
+# 1), a checkpoint every LORA_CKPT_EVERY steps, a test of LORA_TEST_PAIRS
+LORA = "universepp_lora_finetune"
+LORA_STEPS, LORA_CKPT_EVERY = 6, 3
+LORA_PAIRS, LORA_VAL_PAIRS, LORA_TEST_PAIRS = 16, 3, 2
+LORA_OVERRIDES = []  # full width
+# 11e: UNIVERSE++ with a multi-resolution aux loss whose warm-up (weights 0,
+# 0.5, 1) the AUX_STEPS steps cross, at batch AUX_BATCH
+AUX_OVERRIDES = ["+model.losses.aux_loss._target_=open_universe_tpu.losses.MultiResL1SpecLoss",
+                 "+model.losses.aux_loss.window_sz=[256,1024,2048]",
+                 "+model.losses.aux_loss_schedule.start_step=0",
+                 "+model.losses.aux_loss_schedule.warmup_steps=2"]
+AUX_STEPS, AUX_BATCH = 3, 8
+LORA_LOSSES = ("train/main_loss", "train/multires_l1", "train/mpd", "train/mrd",
+               "train/mpd_fm", "train/mrd_fm")
+
+
+class CountedEval:
+    """Trainer.validate and Trainer.test wrapped to record, per call, the
+    fused-kernel launches it made (counted from 0) and its timing; launches
+    made outside them (the steps) add up in ``steps``, counted from 0 at
+    entry."""
+
+    def __init__(self):
+        from open_universe_tpu_torch.ops.kernels import conv_block
+        from open_universe_tpu_torch.train import trainer as ptrainer
+
+        self.conv_block, self.cls = conv_block, ptrainer.Trainer
+        self.calls, self.steps = [], 0
+
+    def _wrap(self, real, kind):
+        def run(trainer, step=None, draws=None):
+            self.steps += sum(self.conv_block.launches.values())
+            self.conv_block.launches.clear()
+            out = real(trainer, step, draws)
+            torch.cuda.synchronize()
+            self.calls.append({"kind": kind, "launches": dict(self.conv_block.launches),
+                               "timing": dict(trainer.val_timing) if kind == "validate" else {}})
+            self.conv_block.launches.clear()
+            return out
+        return run
+
+    def __enter__(self):
+        self.conv_block.launches.clear()  # nothing from an earlier phase counts
+        self.real = self.cls.validate, self.cls.test
+        self.cls.validate = self._wrap(self.real[0], "validate")
+        self.cls.test = self._wrap(self.real[1], "test")
+        return self
+
+    def __exit__(self, *exc):
+        self.steps += sum(self.conv_block.launches.values())
+        self.cls.validate, self.cls.test = self.real
+        return False
+
+
+def lora_base_name(model, name: str) -> str:
+    """The base checkpoint's name of a UniverseLoRA parameter: ``model.`` off,
+    and a wrapped layer's ``<path>.conv.<leaf>`` as ``<path>.<leaf>``."""
+    from open_universe_tpu_torch.nn.lora import LoraLayer
+
+    mod, _, leaf = name.rpartition(".")
+    parent, _, last = mod.rpartition(".")
+    wrapper = dict(model.named_modules()).get(parent)
+    if isinstance(wrapper, LoraLayer) and wrapper.nest == last:
+        name = f"{parent}.{leaf}"
+    return name[len("model."):]
+
+
+def phase_lora_training(base_ckpt: str):
+    """11a and 11c: the training entry point with
+    experiment=universepp_lora_finetune on phase 8's full-width checkpoint
+    (f32, PyTorch's TF32 defaults, the phoneme loss off) for LORA_STEPS
+    steps, a validation at the last, a checkpoint every LORA_CKPT_EVERY, then
+    the test.  Checks: every loss finite; 0 fused-kernel launches in the
+    steps, the validation and the test (adapters attached); every frozen
+    parameter equal to the base checkpoint's bit for bit, the adapters
+    moved; val/multires_l1 and the metrics finite; a run resumed from the
+    middle checkpoint restores its state bit for bit.  Returns its numbers
+    and the last checkpoint."""
+    import glob
+
+    from open_universe_tpu_torch.inference.model_loader import load_model, normalize_key
+    from open_universe_tpu_torch.train.__main__ import main as train_main
+
+    tmp = tempfile.mkdtemp()
+    data, exp = os.path.join(tmp, "data"), os.path.join(tmp, "exp")
+    write_pairs(data, LORA_PAIRS, TRAIN_PAIR_S, seed=12)
+    write_pairs(data, LORA_VAL_PAIRS, np.linspace(1.3, 2.5, LORA_VAL_PAIRS), seed=13,
+                split="val")
+    write_pairs(data, LORA_TEST_PAIRS, np.linspace(1.5, 2.5, LORA_TEST_PAIRS), seed=14,
+                split="test")
+    args = [f"experiment={LORA}", f"device={DEVICE}", f"model.model={base_ckpt}",
+            "model.losses.phonemeloss=null",
+            f"datamodule.datasets.vb-train-16k.audio_path={data}",
+            f"trainer.max_steps={LORA_STEPS}", f"trainer.val_check_interval={LORA_STEPS}",
+            f"trainer.checkpoint_every={LORA_CKPT_EVERY}", "trainer.log_every=1",
+            *LORA_OVERRIDES]
+    torch.cuda.reset_peak_memory_stats()
+    tf32_flags(True)
+    try:
+        with CountedEval() as counted:
+            trainer = train_main(args + ["train=false", f"path.exp_root={exp}/first"])
+            model = trainer.model
+            init = {n: p.detach().clone() for n, p in model.named_parameters() if p.requires_grad}
+            t0 = time.perf_counter()
+            trainer.fit()
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            trainer.test()
+    finally:
+        tf32_flags(False)
+    (run_dir,) = glob.glob(os.path.join(exp, "first", LORA, "*"))
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    train_rows = [r for r in rows if "train/main_loss" in r]
+    for r in train_rows:
+        log(f"[lora] step {r['step']}: " + ", ".join(f"{k[6:]} {r[k]:.5f}" for k in LORA_LOSSES)
+            + f", grad norm {r['grad/norm']:.3e}, {r['perf/step_time_s']:.3f} s, "
+            f"peak {r.get('perf/peak_mem_gib', float('nan')):.2f} GiB")
+    if len(train_rows) != LORA_STEPS or not all(
+            np.isfinite(r[k]) for r in train_rows for k in LORA_LOSSES + ("grad/norm",)):
+        raise AssertionError(f"LoRA training losses: {train_rows}")
+    if [c["kind"] for c in counted.calls] != ["validate", "test"]:
+        raise AssertionError(f"validations and tests run: {[c['kind'] for c in counted.calls]}")
+    launched = {"steps": counted.steps, "validation": sum(counted.calls[0]["launches"].values()),
+                "test": sum(counted.calls[1]["launches"].values())}
+    log(f"[lora] fused-kernel launches (adapters attached): {launched}")
+    if any(launched.values()):
+        raise AssertionError(f"the kernel ran with LoRA adapters attached: {launched}")
+
+    base_sd = load_model(base_ckpt, device=DEVICE, trainable=True).state_dict()
+    n_train = {"adapters": 0, "biases and the rest": 0}
+    frozen_bad, moved = [], {"adapters": 0, "biases and the rest": 0}
+    for n, p in model.named_parameters():
+        if p.requires_grad:
+            grp = "adapters" if "lora_" in n else "biases and the rest"
+            n_train[grp] += 1
+            moved[grp] += not torch.equal(p.detach(), init[n])
+        elif not torch.equal(p.detach(), base_sd[lora_base_name(model, n)]):
+            frozen_bad.append(n)
+    n_el = {"trainable": sum(p.numel() for p in model.parameters() if p.requires_grad),
+            "frozen": sum(p.numel() for p in model.parameters() if not p.requires_grad)}
+    log(f"[lora] tensors moved by group {moved} of {n_train}; elements {n_el}; frozen tensors "
+        f"that differ from the base checkpoint's: {frozen_bad[:5]} ({len(frozen_bad)})")
+    if frozen_bad or moved["adapters"] < n_train["adapters"] // 2:
+        raise AssertionError(f"LoRA steps: frozen changed {frozen_bad[:8]}, moved {moved}")
+
+    val = [r for r in rows if "val/multires_l1" in r]
+    val_keys = ("val/main_loss", "val/multires_l1", "val/mpd", "val/mrd", "val/pesq", "val/lsd")
+    with open(os.path.join(run_dir, "test_summary.json")) as f:
+        summary = json.load(f)
+    log(f"[lora] validation @{val[0]['step']} ({LORA_VAL_PAIRS} clips): "
+        + ", ".join(f"{k} {val[0][k]:.4f}" for k in val_keys)
+        + f"; {counted.calls[0]['timing']}; test summary {summary}")
+    if not all(np.isfinite(val[0][k]) for k in val_keys) or summary.get("number") != \
+            LORA_TEST_PAIRS:
+        raise AssertionError(f"LoRA validation {val}, test {summary}")
+    times = [r["perf/step_time_s"] for r in train_rows]
+    result = {"steps": LORA_STEPS,
+              "batch": trainer.config["datamodule"]["train"]["dl_opts"]["batch_size"],
+              "crop_s": 2.0, "first_step_s": times[0],
+              "median_step_s": float(np.median(times[1:])), "peak_mem_gib": peak,
+              "fit_s": fit_s, "elements": n_el, "launches": launched,
+              "losses": {k: [r[k] for r in train_rows] for k in LORA_LOSSES},
+              "validation": {k: val[0][k] for k in val_keys},
+              "validation_timing": counted.calls[0]["timing"], "test_summary": summary}
+    log(f"[lora] {card_line()}: first step {times[0]:.3f} s, median after it "
+        f"{result['median_step_s']:.3f} s, peak {peak:.2f} GiB (batch 4 x 2 s, f32, cuDNN "
+        f"TF32 on, 8 sampler steps, gradients in the last 2)")
+    del trainer, model, init, base_sd
+    torch.cuda.empty_cache()
+
+    # resume from the middle checkpoint: the restored state is its own
+    ckpt_mid = os.path.join(run_dir, "checkpoints", f"step_{LORA_CKPT_EVERY:08d}.ckpt")
+    resumed = train_main(args + [f"ckpt_path={ckpt_mid}", "train=false",
+                                 f"path.exp_root={exp}/resumed"])
+    saved = torch.load(ckpt_mid, map_location=DEVICE, weights_only=False)
+    restored = trainer_state(resumed)
+    bad = same_state(restored, {
+        "state_dict": {normalize_key(k): v for k, v in saved["state_dict"].items()},
+        "global_step": saved["global_step"], "optimizer_states": saved["optimizer_states"],
+        "updates": [s["updates"] for s in saved["lr_schedulers"]],
+        "ema": saved["ema"]["shadow_params"], "num_updates": saved["ema"]["num_updates"]})
+    half = LORA_CKPT_EVERY
+    bad += [] if (restored["global_step"], restored["num_updates"], restored["updates"]) == (
+        half, half, [half]) else ["counts"]
+    edm = sum(k.startswith("model._edm_model.") for k in saved["state_dict"])
+    log(f"[lora] resumed from {os.path.basename(ckpt_mid)} ({edm} model._edm_model. keys): "
+        f"restored state differs at {bad[:5]} ({len(bad)} paths)")
+    if bad or not edm:
+        raise AssertionError(f"LoRA resume differs at {bad[:8]}")
+    del resumed, saved
+    torch.cuda.empty_cache()
+    return result, os.path.join(run_dir, "checkpoints", f"step_{LORA_STEPS:08d}.ckpt")
+
+
+def phase_lora_step_vs_cpu():
+    """11b: one LoRA fine-tuning step (the experiment's config: rank 16,
+    alpha 4, 8 sampler steps with gradients in the last 2, the frozen
+    discriminators' loss) on a narrow UNIVERSE++ (NARROW_OVERRIDES) on the
+    card and on the CPU, same weights, adapters and sampler draws, TF32 off.
+    Bounds: losses relative <= 1e-4 (the sampler's last step cancels a
+    sigma_max-scale start down to the signal, which amplifies float32's
+    rounding); every trainable tensor's gradient <= 1e-2 of its largest
+    (5e-2 for one element) plus 1e-6 of the largest trainable gradient (the
+    losses are L1s on STFT magnitudes and feature maps, whose gradients
+    flip sign where the two sides round apart; a few tensors' gradients
+    cancel to ~1e-7 of the largest); every change as 8b's."""
+    import copy
+
+    from open_universe_tpu_torch.configs.registry import instantiate_trainable
+    from open_universe_tpu_torch.configs.resolve import compose
+    from open_universe_tpu_torch.models.universe_lora import UniverseLoRA
+    from open_universe_tpu_torch.nn.layers import init_weights
+    from open_universe_tpu_torch.train.trainer import make_train_step
+    from open_universe_tpu_torch.utils.convert import fold_weight_norm
+
+    cfg = compose(config_dir(), ["experiment=universepp_vb_16k", *NARROW_OVERRIDES])
+    base = fold_weight_norm(init_weights(instantiate_trainable(cfg["model"]), seed=3))
+    lcfg = compose(config_dir(), [f"experiment={LORA}", "model.losses.phonemeloss=null"])
+    kw = {k: v for k, v in lcfg["model"].items() if k not in ("_target_", "model")}
+    rng = np.random.default_rng(6)
+    clean = (0.05 * rng.standard_normal((2, NARROW_T, 1))).astype(np.float32)
+    batch = {"clean": clean,
+             "noisy": clean + (0.02 * rng.standard_normal(clean.shape)).astype(np.float32)}
+    padded = (2, NARROW_T + base.tot_ds - NARROW_T % base.tot_ds, 1)
+    noise = [rng.standard_normal(padded).astype(np.float32) for _ in range(N_STEPS)]
+    runs = {}
+    for tag, device in (("cpu", "cpu"), ("card", DEVICE)):
+        model = UniverseLoRA(model=copy.deepcopy(base).to(device), **kw)
+        step = make_train_step(model, lcfg["trainer"]["max_steps"])
+        p0 = {n: p.detach().cpu().clone() for n, p in model.named_parameters()
+              if p.requires_grad}
+        m = step({k: torch.from_numpy(v).to(device) for k, v in batch.items()},
+                 draws={"noise": [torch.from_numpy(z).to(device) for z in noise]})
+        runs[tag] = ({k: float(v) for k, v in m.items()}, p0,
+                     {n: (p.detach().cpu(), p.grad.cpu()) for n, p in model.named_parameters()
+                      if p.requires_grad})
+    (m_cpu, p0, cpu), (m_card, _, card) = runs["cpu"], runs["card"]
+    loss_rel = {k: abs(m_card[k] - v) / max(abs(v), 1e-12) for k, v in m_cpu.items()
+                if k.startswith(("train/", "grad/"))}
+    top = max(g.abs().max().item() for _, g in cpu.values())
+    grad_rel, small, failed = {}, 0, []
+    for n, (p_cpu, g_cpu) in cpu.items():
+        p_card, g_card = card[n]
+        scale = g_cpu.abs().max().item()
+        err = (g_card - g_cpu).abs().max().item()
+        grad_rel[n] = err / max(scale, 1e-30)
+        if not err <= (5e-2 if g_cpu.numel() == 1 else 1e-2) * scale + 1e-6 * top:
+            failed.append(f"gradient of {n}: {grad_rel[n]:.3e}")
+        d_cpu, d_card = p_cpu - p0[n], p_card - p0[n]
+        bound = 1e-3 * d_cpu.abs().max() + 2 * torch.finfo(torch.float32).eps * (
+            p0[n].abs() + d_cpu.abs())
+        bad = (d_card - d_cpu).abs() > bound
+        tiny = (g_cpu.abs() < 1e-2 * scale) | (g_cpu.abs() < 1e-7) | (g_cpu.abs() < 1e-4 * top)
+        small += int((bad & tiny).sum())
+        if (bad & ~tiny).any():
+            failed.append(f"update of {n}")
+    n_el = sum(g.numel() for _, g in cpu.values())
+    worst = sorted(grad_rel.items(), key=lambda kv: -kv[1])[:6]
+    log(f"[lora-vs-cpu] narrow step ({NARROW_OVERRIDES}, batch 2 x {NARROW_T}, the "
+        f"experiment's LoRA config), TF32 off: losses max rel {max(loss_rel.values()):.3e} "
+        f"({max(loss_rel, key=loss_rel.get)}); {len(cpu)} trainable tensors, gradient "
+        f"max|d| / max|g_cpu| median {float(np.median(list(grad_rel.values()))):.3e}, worst "
+        f"{worst}; updates: {small} small-gradient elements of {n_el} past 1e-3")
+    if not max(loss_rel.values()) <= 1e-4 or small > 1e-2 * n_el or failed:
+        raise AssertionError(f"LoRA card vs CPU step beyond its bounds: losses {loss_rel}, "
+                             f"small {small}, {failed[:8]}")
+    return {"loss_rel": max(loss_rel.values()), "trainable_tensors": len(cpu),
+            "grad_rel_median": float(np.median(list(grad_rel.values()))),
+            "grad_rel_worst": worst, "small_gradient_elements": small, "elements": n_el}
+
+
+def phase_lora_checkpoint(ckpt: str):
+    """11d: load_model on the fine-tuned checkpoint (a UniverseLoRA, EMA
+    applied): enhance of 2 x 2 s launches 0; merge_lora's plain model
+    launches 94 through both entries (f32, then bf16) and equals the adapter
+    model's enhance on the same noise (f32: <= 1e-4 of max|ref|; bf16 logged:
+    the two round the weights at other points); audio-s/s at batch 128 x
+    2 s, merged (kernel) against adapters (unfused), bf16 and f32 (median of
+    3); one file through the enhance CLI."""
+    from open_universe_tpu_torch.inference.model_loader import load_model
+
+    model = load_model(ckpt, device=DEVICE)
+    t = int(CLIP_S * FS)
+    g = torch.Generator(device=DEVICE).manual_seed(71)
+    mix = torch.randn(2, t, generator=g, device=DEVICE) * 0.05
+    noise = noise_draws(model.model, 2, t, seed=72)
+    out = {"type": type(model).__name__}
+    adapter, counts = counted_enhance(model, mix, noise)
+    log(f"[lora ckpt] load_model({os.path.basename(ckpt)}) -> {out['type']}: enhance of "
+        f"2 x 2 s with the adapters: {sum(counts.values())} launches")
+    if counts or out["type"] != "UniverseLoRA":
+        raise AssertionError(f"LoRA checkpoint: {out['type']}, launches {counts}")
+    merged = model.merge_lora()
+    for tag, dtype, route in (("f32", None, F32), ("bf16", torch.bfloat16, BF16)):
+        o, counts = counted_enhance(merged, mix, noise, dtype)
+        check_path(f"lora merged {tag}", counts, WIDTH_LENGTHS, route, o, t)
+        ref = adapter if dtype is None else counted_enhance(model, mix, noise, dtype)[0]
+        rel = (o - ref).abs().max().item() / ref.abs().max().item()
+        out[tag] = {"launches": by_entry(counts), "max_rel_diff": rel}
+        log(f"[lora ckpt {tag}] merge_lora (kernel) vs the adapters (unfused): max|d| / "
+            f"max|ref| = {rel:.3e}" + (" (bound 1e-4)" if dtype is None else " (no bound: bf16)"))
+        if dtype is None and not rel <= 1e-4:
+            raise AssertionError(f"merge_lora's enhance differs from the adapters' by {rel}")
+    mix_t = torch.randn(TIMING_BATCH, t, generator=g, device=DEVICE) * 0.05
+    noise_t = noise_draws(model.model, TIMING_BATCH, t, seed=73)
+    rates = {}
+    for tag, dtype in (("bf16", torch.bfloat16), ("f32", None)):
+        for name, m in (("merged_kernel", merged), ("adapters_unfused", model)):
+            s = timed_enhance(m, mix_t, noise_t, True, dtype, runs=3)
+            rates[f"{tag}_{name}"] = TIMING_BATCH * CLIP_S / s
+    log(f"[lora ckpt] {card_line()}: enhance at batch {TIMING_BATCH} x 2 s, 8 steps, "
+        f"audio-s/s: " + ", ".join(f"{k} {v:.1f}" for k, v in rates.items()))
+    out["audio_s_per_s"] = rates
+    del merged, mix_t, noise_t
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = os.path.join(tmp, "in"), os.path.join(tmp, "out")
+        write_tree(src, CLI_FILES[:1])
+        counts, cli = run_cli("lora", src, dst, ckpt)
+        check_outputs("lora", dst, CLI_FILES[:1])
+    if counts:
+        raise AssertionError(f"the enhance CLI on the LoRA checkpoint launched {counts}")
+    out["cli"] = cli
+    return out
+
+
+def phase_aux_gan():
+    """11e: UNIVERSE++ with a MultiResL1SpecLoss aux loss (windows 256, 1024,
+    2048) on a warm-up the steps cross (start 0 over 2 steps): AUX_STEPS
+    full-width GAN steps of universepp_vb_16k through the entry point at
+    batch AUX_BATCH x 2 s (f32, PyTorch's TF32 defaults): the aux term and
+    its weight per step (0, 0.5, 1), losses finite, 0 launches; then one
+    narrow step at step 1 (weight 0.5) on the card against the CPU with 8b's
+    bounds, plus 1e-6 of each group's largest gradient on each tensor's."""
+    import glob
+
+    from open_universe_tpu_torch.ops.kernels import conv_block
+    from open_universe_tpu_torch.train.__main__ import main as train_main
+
+    tmp = tempfile.mkdtemp()
+    data = os.path.join(tmp, "data")
+    write_pairs(data, AUX_BATCH, TRAIN_PAIR_S, seed=15)
+    tf32_flags(True)
+    try:
+        trainer = train_main([
+            "experiment=universepp_vb_16k", f"device={DEVICE}", "train=false",
+            f"datamodule.datasets.vb-train-16k.audio_path={data}",
+            f"datamodule.train.dl_opts.batch_size={AUX_BATCH}",
+            f"trainer.max_steps={AUX_STEPS}", "trainer.val_check_interval=1000000",
+            "trainer.log_every=1", f"path.exp_root={tmp}/exp", *TRAIN_OVERRIDES,
+            *AUX_OVERRIDES])
+        conv_block.launches.clear()
+        trainer.fit()
+        torch.cuda.synchronize()
+        launches = sum(conv_block.launches.values())
+    finally:
+        tf32_flags(False)
+    (run_dir,) = glob.glob(os.path.join(tmp, "exp", "universepp_vb_16k", "*"))
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    for r in rows:
+        log(f"[aux] step {r['step']}: aux weight {r['train/aux_weight']:.2f}, aux term "
+            f"{r['train/signal_aux']:.5f}, loss_gen {r['train/loss_gen']:.4f}, loss_disc "
+            f"{r['train/loss_disc']:.4f}, {r['perf/step_time_s']:.3f} s")
+    weights = [r["train/aux_weight"] for r in rows]
+    aux = [r["train/signal_aux"] for r in rows]
+    if weights != [0.0, 0.5, 1.0] or aux[0] != 0.0 or not all(a > 0 for a in aux[1:]) or \
+            launches or not all(np.isfinite(v) for r in rows for k, v in r.items()
+                                if k.startswith("train/")):
+        raise AssertionError(f"aux-loss GAN steps: weights {weights}, aux {aux}, "
+                             f"launches {launches}")
+    del trainer
+    torch.cuda.empty_cache()
+    vs_cpu = phase_train_step_vs_cpu(extra=AUX_OVERRIDES, at_step=1, name="aux-vs-cpu",
+                                     grad_floor=1e-6)
+    return {"steps": AUX_STEPS, "batch": AUX_BATCH, "aux_weights": weights, "aux_terms": aux,
+            "launches": launches, "step_s": [r["perf/step_time_s"] for r in rows],
+            "card_vs_cpu": vs_cpu}
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2135,6 +2534,14 @@ def main() -> int:
     lap("10d plain UNIVERSE checkpoint")
     original["compressed_mag_stft_vs_cpu"] = phase_transform_vs_cpu()
     lap("10e CompressedMagSTFT")
+    lora, lora_ckpt = phase_lora_training(ckpt)
+    lap("11a/c LoRA fine-tuning, validation, test, resume")
+    lora["card_vs_cpu"] = phase_lora_step_vs_cpu()
+    lap("11b LoRA card vs cpu")
+    lora["checkpoint"] = phase_lora_checkpoint(lora_ckpt)
+    lap("11d LoRA checkpoint")
+    lora["aux_gan"] = phase_aux_gan()
+    lap("11e UNIVERSE++ aux loss")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     def cli_entry(entry):
@@ -2209,6 +2616,10 @@ def main() -> int:
         # both entries), its trained checkpoint's enhance and audio-s/s,
         # the CompressedMagSTFT models against the CPU
         "universe_original": original,
+        # phase 11: LoRA fine-tuning (no launch while adapters are attached:
+        # steps, validation, test, the adapter model's enhance and CLI),
+        # merge_lora's enhance through the kernel, UNIVERSE++ with the aux loss
+        "lora": lora,
     }, {
         "name": "fused_conv_chain_rows",
         "route": "cuda",
@@ -2241,6 +2652,11 @@ def main() -> int:
             "validation": original["validation_launches"].get("fused_conv_chain_rows", 0),
             "test": original["test_launches"].get("fused_conv_chain_rows", 0),
             **{f"trained_enhance_{k}": original["trained_checkpoint"][k]["launches"].get(
+                "fused_conv_chain_rows", 0) for k in ("f32", "bf16")}},
+        # phase 11: launches with LoRA adapters attached (0) and per enhance
+        # of the merged fine-tuned checkpoint through this entry
+        "lora_launches": {**lora["launches"], **{
+            f"merged_enhance_{k}": lora["checkpoint"][k]["launches"].get(
                 "fused_conv_chain_rows", 0) for k in ("f32", "bf16")}},
     }]}
     for tag, sh in (("batch 128, 16 kHz", shapes), ("batch 128, 24 kHz", shapes_24k),

@@ -6,8 +6,9 @@ files load unchanged) and ``open_universe_tpu.`` names resolve.  A factory
 takes the node's keys and builds its own children.  A target the port lacks
 raises ``KeyError`` with its name.  ``instantiate`` builds a model for
 inference, without its training nodes; ``instantiate_trainable`` builds a
-UNIVERSE or UNIVERSE++ for the trainer, with them (and so with its loss
-modules: the MDN losses or the discriminators).
+model for the trainer, with them: a UNIVERSE or UNIVERSE++ with its loss
+modules (the MDN losses, or the discriminators and the auxiliary loss
+``losses.aux_loss``), or a ``UniverseLoRA`` that fine-tunes a checkpoint.
 """
 from __future__ import annotations
 
@@ -67,7 +68,10 @@ def _universe_kwargs(kw: dict, train: bool = False) -> dict:
         raise NotImplementedError(f"score_loss {sl} not supported (MSE only)")
     out = {k: v for k, v in kw.items() if train or k not in _TRAINING_ONLY}
     if train:
-        out["losses"] = {k: v for k, v in losses.items() if k != "score_loss"}
+        out["losses"] = {k: v for k, v in losses.items()
+                         if k not in ("score_loss", "aux_loss")}
+        if losses.get("aux_loss"):
+            out["losses"]["aux_loss_module"] = instantiate(losses["aux_loss"])
     out["score_model"] = instantiate(kw.get("score_model"))
     out["condition_model"] = instantiate(kw.get("condition_model"))
     if kw.get("transform"):
@@ -93,16 +97,28 @@ def build_universe_gan(train: bool = False, **kw):
         **_universe_kwargs(kw, train=train))
 
 
+@register("networks.universe.UniverseLoRA")
+def build_universe_lora(train: bool = False, **kw):
+    """``model`` is the checkpoint to fine-tune; the loss nodes are built
+    inside ``UniverseLoRA``, and left out (with the other training nodes)
+    unless ``train``."""
+    from ..models.universe_lora import UniverseLoRA
+
+    if not train:
+        kw = {k: v for k, v in kw.items() if k not in _TRAINING_ONLY}
+    return UniverseLoRA(**kw)
+
+
 def instantiate_trainable(cfg: dict):
-    """The UNIVERSE or UNIVERSE++ model of a training config, with its
-    training nodes (losses, training, validation, optimizer, scheduler,
-    grad_clipper) and its loss modules.  LoRA and the enhancement family are
-    not trained by the port (ROADMAP queue 1)."""
+    """The model of a training config with its training nodes (losses,
+    training, validation, optimizer, scheduler, grad_clipper): a UNIVERSE or
+    UNIVERSE++ with its loss modules, or a UniverseLoRA.  The rest of the
+    enhancement family has no config target (as in the JAX package)."""
     target = cfg.get("_target_", "") if isinstance(cfg, dict) else ""
     fn = _REGISTRY.get(target)
-    if fn not in (build_universe, build_universe_gan):
-        raise NotImplementedError(f"the port trains Universe and UniverseGAN only, not "
-                                  f"{target!r} (ROADMAP queue 1)")
+    if fn not in (build_universe, build_universe_gan, build_universe_lora):
+        raise NotImplementedError(f"the port trains Universe, UniverseGAN and UniverseLoRA "
+                                  f"only, not {target!r}")
     return fn(train=True, **{k: v for k, v in cfg.items() if k not in _META})
 
 
@@ -125,6 +141,20 @@ def build_compressed_mag_stft_padded(**kw):
     from ..models.transforms import CompressedMagSTFTPadded
 
     return CompressedMagSTFTPadded(**kw)
+
+
+@register("losses.MultiResL1SpecLoss")
+def build_multires_loss(**kw):
+    from ..losses.multires_stft import MultiResL1SpecLoss
+
+    return MultiResL1SpecLoss(**kw)
+
+
+@register("losses.MultiLoss")
+def build_multi_loss(**kw):
+    from ..losses.combine import MultiLoss
+
+    return MultiLoss({k: (v[0], instantiate(v[1])) for k, v in kw["losses"].items()})
 
 
 @register("metrics.EvalMetrics")

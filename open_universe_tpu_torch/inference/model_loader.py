@@ -9,7 +9,10 @@ port's modules carry the reference's ``state_dict`` names and PyTorch
 layouts, so the weights go in with ``load_state_dict``; the EDM checkpoints'
 ``_edm_model.`` prefix maps onto ``score_model.``.  With ``load_ema`` the
 checkpoint's EMA shadow replaces the weights, and with ``fold_wn`` weight
-norm is folded.
+norm is folded.  A LoRA fine-tune's checkpoint (``UniverseLoRA``) loads the
+same way: its config's ``model.model`` names the base checkpoint, which
+``UniverseLoRA`` loads first; then this checkpoint's state (adapters
+included, under the ``model.`` prefix) and EMA shadow replace its weights.
 
 Not ported: the JAX package's Orbax Trainer run directories (export one
 with its ``bin/export_torch.py`` first).  Like the JAX loader, this one does
@@ -26,7 +29,7 @@ import torch
 import yaml
 from torch import nn
 
-from ..configs.registry import instantiate
+from ..configs.registry import instantiate, instantiate_trainable
 from ..utils.convert import fold_weight_norm
 from ..utils.device import resolve_device
 
@@ -109,6 +112,7 @@ def load_state(model: nn.Module, state_dict: Dict[str, Any],
     in the checkpoint.  Returns the checkpoint keys the port has no place
     for (recomputed buffers, the GAN losses' modules, layers not ported)."""
     own = model.state_dict()
+    modules = dict(model.named_modules())
     sd, skipped = {}, []
     for key, value in state_dict.items():
         name = normalize_key(key)
@@ -126,17 +130,19 @@ def load_state(model: nn.Module, state_dict: Dict[str, Any],
             name = normalize_key(key)
             if name in own:
                 sd[name] = value
-            elif isinstance(getattr(model, name.split(".", 1)[0], None), nn.Module):
+            elif name.rpartition(".")[0] in modules:
                 raise KeyError(f"the port has no parameter {name!r} for EMA key {key!r}")
     model.load_state_dict(sd, strict=True)
     return skipped
 
 
 def load_model(name_or_path: Union[str, Path], load_ema: bool = True,
-               fold_wn: bool = True, device=None) -> nn.Module:
+               fold_wn: bool = True, device=None, trainable: bool = False) -> nn.Module:
     """Load a model from a local ``.ckpt`` or the HF hub onto ``device``
     (CUDA unless given another), in eval mode; run it with
-    ``model.enhance(mix, ...)``."""
+    ``model.enhance(mix, ...)``.  ``trainable`` builds it with its training
+    nodes and loss modules (``instantiate_trainable``), whose weights the
+    checkpoint must hold (e.g. UNIVERSE++'s discriminators)."""
     device = resolve_device(device)
     p = Path(name_or_path)
     if p.is_dir():
@@ -151,7 +157,8 @@ def load_model(name_or_path: Union[str, Path], load_ema: bool = True,
 
     with open(cfg_path) as f:
         config = yaml.safe_load(f)
-    model = instantiate(config.get("model", config))
+    model_cfg = config.get("model", config)
+    model = instantiate_trainable(model_cfg) if trainable else instantiate(model_cfg)
     if not isinstance(model, nn.Module):
         raise TypeError(f"{cfg_path} does not describe a model")
 

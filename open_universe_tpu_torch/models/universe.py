@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import kernels
-from ..utils.norm import normalize_batch
+from ..utils.norm import as_batch, clip_protect, like_input, normalize_batch, rms
 from ..utils.random import center_truncated_normal
 from ..utils.stats import signal_median
 from .condition import ConditionerNetwork
@@ -379,17 +379,6 @@ class Universe(nn.Module):
                              f"got {[tuple(z.shape) for z in draws]}")
         return draws
 
-    @staticmethod
-    def _as_batch(x: torch.Tensor) -> torch.Tensor:
-        """(T,), (B, T) or (B, T, C) -> (B, T, C)."""
-        if x.dim() == 1:
-            return x[None, :, None]
-        if x.dim() == 2:
-            return x[:, :, None]
-        if x.dim() > 3:
-            raise ValueError("input should have at most 3 dimensions")
-        return x
-
     @torch.no_grad()
     def enhance(self, mix, n_steps: Optional[int] = None,
                 epsilon: Optional[float] = None,
@@ -449,9 +438,9 @@ class Universe(nn.Module):
         if not mix.is_floating_point():
             mix = mix.float()
         x_ndim = mix.dim()
-        mix = self._as_batch(mix)
+        mix = as_batch(mix)
 
-        mix_rms = torch.sqrt(torch.mean(mix**2, dim=(-2, -1), keepdim=True))
+        mix_rms = rms(mix)
         if ensemble is not None:
             mix_shape = tuple(mix.shape)
             mix = mix.repeat(ensemble, 1, 1)  # member-major, as jnp.tile
@@ -459,7 +448,7 @@ class Universe(nn.Module):
         mix_len = mix.shape[1]
         mix, pad = self.pad(mix)
         if target is not None:
-            target = self._as_batch(torch.as_tensor(target, device=device).float())
+            target = as_batch(torch.as_tensor(target, device=device).float())
             if ensemble is not None:
                 target = target.repeat(ensemble, 1, 1)
             target, _ = self.pad(target, pad=pad)
@@ -547,20 +536,12 @@ class Universe(nn.Module):
         if x.shape[1] < mix_len:
             x = F.pad(x, (0, 0, 0, mix_len - x.shape[1]))
         if keep_rms:
-            x_rms = torch.sqrt(torch.mean(x**2, dim=(-2, -1), keepdim=True))
-            x = x * mix_rms / torch.clamp(x_rms, min=1e-5)
-        # clip protection
-        scale = torch.amax(torch.abs(x), dim=1, keepdim=True)
-        x = torch.where(scale > 1.0, x / scale, x)
+            x = x * mix_rms / torch.clamp(rms(x), min=1e-5)
+        x = clip_protect(x)
 
         if ensemble is not None:
             x = ensemble_reduce(x.reshape((-1,) + mix_shape), ensemble_stat)
-
-        if x_ndim == 1:
-            return x[0, :, 0]
-        if x_ndim == 2:
-            return x[:, :, 0]
-        return x
+        return like_input(x, x_ndim)
 
 
 def ensemble_reduce(x: torch.Tensor, stat: str) -> torch.Tensor:

@@ -12,14 +12,19 @@ and computes the three parts of a GAN step (``train/steps.py``):
 
   generator_forward     one forward of the conditioner and score networks
   discriminator_losses  LSGAN loss on (target, y_est), y_est detached by the caller
-  generator_losses      score MSE + 45 * mel L1 + the adversarial and
-                        feature-matching terms, gated by ``adversarial_on``
+  generator_losses      score MSE + 45 * mel L1 + the auxiliary loss + the
+                        adversarial and feature-matching terms, gated by
+                        ``adversarial_on``
+
+The auxiliary loss (``losses.aux_loss``, e.g. a ``MultiResL1SpecLoss``,
+built by the registry into ``aux_loss_module``) compares ``y_est`` with the
+target, scaled by the step's warm-up weight (``GANTrainStep``, from
+``losses.aux_loss_schedule``) and by ``losses.weights.aux``.
 
 Reference quirk kept: the signal-decoupling layer is applied and
 EMA-shadowed but never optimised (``optimized_param_keys``), so a
 checkpoint's EMA shadow of it equals its raw value.  Not ported: bf16
-training (``training.compute_dtype``), ``remat`` and the auxiliary loss
-module (ROADMAP queue 1).
+training (``training.compute_dtype``) and ``remat`` (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -39,6 +44,8 @@ from .universe import Universe
 
 
 class UniverseGAN(Universe):
+    loss_aux = None  # the auxiliary loss, a callable on (y_est, target)
+
     def __init__(self, *args, use_signal_decoupling: bool = False,
                  signal_decoupling_act: Optional[str] = None, **kwargs):
         super().__init__(*args, **kwargs)
@@ -56,9 +63,7 @@ class UniverseGAN(Universe):
         ``losses`` node)."""
         self._refuse_unported()
         lk = self.losses_kwargs
-        if lk.get("aux_loss") or lk.get("aux_loss_module"):
-            raise NotImplementedError("the auxiliary loss module is not ported "
-                                      "(ROADMAP queue 1)")
+        self.loss_aux = lk.get("aux_loss_module")
         self.loss_mpd = MultiPeriodDiscriminator(lk.get("multi_period_discriminator", {}))
         self.loss_mrd = MultiResolutionDiscriminator(
             lk.get("multi_resolution_discriminator", {}))
@@ -131,17 +136,24 @@ class UniverseGAN(Universe):
                       "train/loss_mrd": loss_s}
 
     def generator_losses(self, gen_out: Dict[str, Any], target_original,
-                         adversarial_on: bool, adversarial: bool = True):
-        """Score MSE + weighted mel L1 + the adversarial and feature terms.
-        ``adversarial`` False leaves the discriminators out entirely (the
-        disc-frozen step); ``adversarial_on`` False computes the terms but
-        leaves them out of the loss."""
+                         adversarial_on: bool, adversarial: bool = True,
+                         aux_loss_weight: Optional[float] = None):
+        """Score MSE + weighted mel L1 + the auxiliary loss (scaled by
+        ``aux_loss_weight``, the schedule's warm-up weight in [0, 1]) + the
+        adversarial and feature terms.  ``adversarial`` False leaves the
+        discriminators out entirely (the disc-frozen step);
+        ``adversarial_on`` False computes the terms but leaves them out of
+        the loss."""
         w = self.losses_kwargs.get("weights", {})
         sigma = gen_out["sigma"]
         l_score = torch.mean(torch.square(sigma[:, None, None] * gen_out["score"]
                                           + gen_out["z"]))
         loss_mel = torch.mean(torch.abs(gen_out["mel_y_est"] - gen_out["mel_target"]))
         zero = torch.zeros((), device=l_score.device)
+        if self.loss_aux is not None and aux_loss_weight is not None:
+            loss_aux = aux_loss_weight * self.loss_aux(gen_out["y_est"], target_original)
+        else:
+            loss_aux = zero
         if adversarial:
             y_est = gen_out["y_est"]
             y_df_r, y_df_g, fmap_f_r, fmap_f_g = self.loss_mpd(target_original, y_est)
@@ -152,12 +164,13 @@ class UniverseGAN(Universe):
             loss_gen_s, _ = generator_loss(y_ds_g)
         else:
             loss_fm_f = loss_gen_f = loss_fm_s = loss_gen_s = zero
-        loss = l_score * w.get("score", 1.0) + loss_mel * w.get("mel_l1", 45.0)
+        loss = (l_score * w.get("score", 1.0) + loss_mel * w.get("mel_l1", 45.0)
+                + loss_aux * w.get("aux", 1.0))
         if adversarial_on:
             loss = loss + (loss_gen_s + loss_gen_f + loss_fm_s + loss_fm_f)
         metrics = {
             "train/loss_gen": loss, "train/score": l_score,
-            "train/signal_mel": loss_mel, "train/signal_aux": zero,
+            "train/signal_mel": loss_mel, "train/signal_aux": loss_aux,
             "train/mrd_fm": loss_fm_s, "train/mpd_fm": loss_fm_f,
             "train/mrd_gen": loss_gen_s, "train/mpd_gen": loss_gen_f,
             "train/time_mean": torch.mean(gen_out["time"]),

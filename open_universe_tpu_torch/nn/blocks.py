@@ -27,6 +27,7 @@ from ..ops import conv as ops_conv
 from ..ops import kernels
 from ..ops.kernels import conv_block
 from .layers import Conv1d, ConvTranspose1d, PReLU
+from .lora import LoraLayer
 from .snake import AliasFreeSnake
 
 SQRT_HALF = 1.0 / math.sqrt(2.0)
@@ -204,7 +205,8 @@ class ConvBlock(nn.Module):
     def _fused_eligible(self, h: Optional[torch.Tensor] = None) -> bool:
         """The fused kernel takes the plain-PReLU inference configuration:
         kernels enabled, inference (``inference_scope`` or no autograd),
-        folded weights, one PReLU slope per conv, no LinearProj.  It has no
+        folded weights without LoRA adapters, one PReLU slope per conv, no
+        LinearProj.  It has no
         backward, so with autograd on nothing that needs a gradient (``h``
         or a chain parameter) may reach it.  Given ``h`` on the card, its
         dtype, width and batch must be ones the kernel takes (the JAX
@@ -215,6 +217,10 @@ class ConvBlock(nn.Module):
         if self.signal_cond_proj is not None:
             return False
         for conv in (self.conv1, self.conv2, self.conv3):
+            # a LoRA adapter, in any autograd state (JAX nn/blocks.py:222-224):
+            # the kernel would read the base weight without the update
+            if isinstance(conv.conv, LoraLayer):
+                return False
             if conv.act_type != "prelu" or not conv.conv.folded:
                 return False
             if conv.prelu.num_parameters != 1:

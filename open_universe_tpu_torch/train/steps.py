@@ -1,10 +1,16 @@
 """The training steps (JAX package ``train/steps.py``).
 
-``TrainStep`` is the plain UNIVERSE's score-only step
-(``make_train_step``): the loss of ``Universe.training_losses`` (the score
-loss plus the two MDN losses), its gradients for every parameter (the MDN
-loss modules' included), clipped by ``grad_clipper``'s clipper, one AdamW
-update, then EMA of the score and conditioner networks.
+``TrainStep`` is the single-optimizer step (``make_train_step``) of the
+plain UNIVERSE and of the enhancement family (``UniverseLoRA``): the loss of
+the model's ``training_losses`` (the plain UNIVERSE's score loss plus its two
+MDN losses; the fine-tuning losses through LoRA's unrolled sampler), its
+gradients for every parameter that requires one (all of the plain
+UNIVERSE's, its MDN loss modules' included; LoRA's adapters and biases),
+clipped as one group by ``grad_clipper``'s clipper, one AdamW update, then
+EMA of ``model_param_keys()``.  The clipper's norm runs over those
+gradients, as the reference's clipper does; the JAX package's step clips by
+the norm of every parameter's gradient, the frozen ones' too (ROADMAP
+queue 3).
 
 ``GANTrainStep`` is the UNIVERSE++ GAN step (``make_gan_train_step``), in
 the reference's order:
@@ -14,7 +20,10 @@ the reference's order:
    gradients, clipped per sub-tree (mpd, then mrd), and their update
    (held back while ``step < disc_freeze_step``);
 3. the generator's losses against the just-updated discriminators, whose
-   parameters take no gradient, backpropagated through the kept graph;
+   parameters take no gradient, backpropagated through the kept graph; the
+   auxiliary loss, if the model has one, weighted by
+   ``losses.aux_loss_schedule``'s warm-up (``aux_weight``; logged as
+   ``train/aux_weight``);
 4. the generator's gradients clipped per sub-tree (the score network, then
    the conditioner with the signal-decoupling layer), its update, then EMA.
 
@@ -46,12 +55,24 @@ def _params(model, keys):
     return [p for k in keys for p in getattr(model, k).parameters()]
 
 
+def aux_weight(model, step: int) -> float:
+    """The auxiliary loss's weight at ``step`` (JAX ``make_gan_train_step``):
+    a linear ramp from ``start_step`` over ``warmup_steps``, or a switch at
+    ``start_step`` without a warm-up."""
+    sched = model.losses_kwargs.get("aux_loss_schedule") or {}
+    start, warmup = sched.get("start_step", 0), sched.get("warmup_steps", 0)
+    if warmup > 0:
+        return min(max((step - start) / warmup, 0.0), 1.0)
+    return 1.0 if step >= start else 0.0
+
+
 class TrainStep:
-    """Applies score-only steps to ``model`` (a plain UNIVERSE built with its
-    losses) in place.  ``opt`` updates every parameter of the model; ``lr``
-    maps its count of applied updates to its learning rate; ``clipper``
-    (``optim.make_clipper``) clips the gradients as one group.  ``step``
-    and ``updates`` count steps and applied updates."""
+    """Applies steps to ``model`` (a plain UNIVERSE built with its losses,
+    or a model of the enhancement family) in place.  ``opt`` updates the
+    parameters that require a gradient; ``lr`` maps its count of applied
+    updates to its learning rate; ``clipper`` (``optim.make_clipper``)
+    clips the gradients as one group.  ``step`` and ``updates`` count steps
+    and applied updates."""
 
     def __init__(self, model: Universe, opt: torch.optim.Optimizer,
                  lr: Callable[[int], float], ema: Optional[EMA] = None,
@@ -73,13 +94,15 @@ class TrainStep:
         ``GANTrainStep.__call__`` takes them.  Returns the step's metrics as
         tensors."""
         model = self.model
-        params = list(model.parameters())
+        params = [p for p in model.parameters() if p.requires_grad]
         for p in params:
             p.grad = None
-        adaptive = adaptive or {}
-        loss, metrics = model.training_losses(
-            batch["noisy"], batch["clean"], generator, draws,
-            pr_cum=adaptive.get("pr_cum"), bins=adaptive.get("bins"))
+        # only the diffusion models sample time adaptively
+        adaptive = ({"pr_cum": (adaptive or {}).get("pr_cum"),
+                     "bins": (adaptive or {}).get("bins")}
+                    if isinstance(model, Universe) else {})
+        loss, metrics = model.training_losses(batch["noisy"], batch["clean"], generator,
+                                              draws, **adaptive)
         loss.backward()
         # a parameter the loss does not reach has a zero gradient, as in
         # jax.grad: AdamW then still decays it
@@ -197,7 +220,8 @@ class GANTrainStep:
             p.requires_grad_(False)
         try:
             l_gen, g_metrics = model.generator_losses(
-                gen_out, target_original, adv_on, adversarial=not disc_frozen)
+                gen_out, target_original, adv_on, adversarial=not disc_frozen,
+                aux_loss_weight=aux_weight(model, self.step))
         finally:
             for p in mpd + mrd:
                 p.requires_grad_(True)
@@ -207,6 +231,8 @@ class GANTrainStep:
 
         metrics = {**d_metrics, **g_metrics, "grad/score": gnorm_score,
                    "grad/cond": gnorm_cond, "grad/mpd": gnorm_mpd, "grad/mrd": gnorm_mrd}
+        if model.loss_aux is not None:
+            metrics["train/aux_weight"] = torch.tensor(aux_weight(model, self.step))
         ok = True
         if self.nan_guard:
             ok = bool(torch.isfinite(torch.stack(

@@ -1,22 +1,30 @@
-"""The training loop for the plain UNIVERSE and UNIVERSE++ (JAX package
-``train/trainer.py``).
+"""The training loop for the plain UNIVERSE, UNIVERSE++ and LoRA fine-tuning
+(JAX package ``train/trainer.py``).
 
-``Trainer`` draws the model's weights from the seed and builds its step
+``Trainer`` draws the model's weights from the seed (a ``UniverseLoRA``
+keeps the checkpoint's weights and its adapters' draws) and builds its step
 (``train/steps.py``): for UNIVERSE++ the GAN step with two AdamW optimizers
 (generator, discriminators), each with the reference's schedule
-(``train/optim.py``); for the plain UNIVERSE the score-only step with one
-AdamW over every parameter (the MDN loss modules' included), one schedule
-and the ``grad_clipper``'s clipper; EMA for both.  ``fit`` takes steps from
-the datamodule's train loader, runs the disc-frozen GAN step before
-``losses.disc_freeze_step``, logs every ``log_every`` steps (losses, step
-time, peak device memory) to the log and to ``metrics.jsonl`` in the run
-directory, validates every ``val_check_interval`` steps, and writes a
-checkpoint every ``checkpoint_every`` steps and at the end.
+(``train/optim.py``); for the plain UNIVERSE and the enhancement family the
+single-optimizer step with one AdamW over every parameter that requires a
+gradient (the plain UNIVERSE's MDN loss modules included; LoRA's adapters
+and biases), one schedule (constant without ``scheduler``) and the
+``grad_clipper``'s clipper; EMA of ``model_param_keys()`` for all.
+``fit`` takes steps from the datamodule's train loader, runs the
+disc-frozen GAN step before ``losses.disc_freeze_step``, logs every
+``log_every`` steps (losses, step time, peak device memory) to the log and
+to ``metrics.jsonl`` in the run directory, validates every
+``val_check_interval`` steps, and writes a checkpoint every
+``checkpoint_every`` steps and at the end.
 
 Validation (``validate``) and ``test`` run on one copy of the model per call
 (its loss modules left out) with the EMA shadow as its weights and weight
 norm folded, without autograd, so every ConvBlock takes the fused kernel on
-the card.  Validation: the score loss in each of ``validation.n_bins``
+the card (none does while LoRA adapters are attached).  The enhancement
+family validates with its own loss stack (``_validate_enhancement``: the
+mean of ``validation_losses`` over the val batches, then ``enhance`` and
+the metric suite as below).  The diffusion models' validation: the score
+loss in each of ``validation.n_bins``
 uniform time bins (``Universe.compute_losses(train=False)``), averaged over
 the val batches (``val/score``, ``val/score_<lo>-<hi>``; they feed the
 ``adaptive`` time sampling's histogram), then ``enhance`` and the metric
@@ -29,7 +37,8 @@ or from ``draws``.  ``test`` enhances the test split and writes
 schema) to the run directory.
 
 Checkpoints, ``checkpoints/step_<n>.ckpt``, are in the reference's layout:
-``state_dict`` (loss modules included), the EMA shadow list in
+``state_dict`` (loss modules included; a LoRA fine-tune's under ``model.``,
+its EDM score network as ``model._edm_model.``), the EMA shadow list in
 ``inference/model_loader.py::ordered_param_names`` order, and, under
 Lightning's key names, ``optimizer_states`` (one per optimizer: the
 generator's, then the discriminators') and ``lr_schedulers`` (each
@@ -43,8 +52,8 @@ every checkpoint with the newest validation's ``validation.main_loss`` and
 the seed, as the JAX trainer does, and AutoClip's history (the plain
 UNIVERSE's ``grad_clipper: {p: ...}``) empty.
 
-Not ported (ROADMAP queue 1): the enhancement family and LoRA, gradient
-accumulation and multi-device training.
+Not ported (ROADMAP queue 1): bf16 training, gradient accumulation and
+multi-device training.
 """
 from __future__ import annotations
 
@@ -52,6 +61,7 @@ import copy
 import json
 import logging
 import math
+import re
 import time
 from pathlib import Path
 from typing import Any, Dict, Iterator, Optional
@@ -61,9 +71,11 @@ import torch
 import torch.nn.functional as F
 import yaml
 
-from ..inference.model_loader import ordered_param_names
+from ..inference.model_loader import normalize_key, ordered_param_names
+from ..models.enhancement import EnhancementBaseModel
 from ..models.universe import Universe
 from ..models.universe_gan import UniverseGAN
+from ..models.universe_lora import UniverseLoRA
 from ..nn.layers import init_weights
 from ..utils.convert import fold_weight_norm
 from ..utils.device import resolve_device
@@ -116,14 +128,18 @@ def _refuse_accumulation(opt: dict) -> None:
         raise NotImplementedError("gradient accumulation is not ported (ROADMAP queue 1)")
 
 
-def make_train_step(model: Universe, max_steps: int) -> TrainStep:
-    """The score-only step of a plain UNIVERSE's config as it stands: one
-    AdamW over every parameter (weight decay by name), its schedule, the
+def make_train_step(model, max_steps: int) -> TrainStep:
+    """The single-optimizer step of a plain UNIVERSE's or an enhancement
+    model's config as it stands: one AdamW over every parameter that
+    requires a gradient (weight decay by name), its schedule, the
     ``grad_clipper``'s clipper and EMA from the current weights (JAX
-    ``Trainer._setup``'s non-GAN branch)."""
+    ``Trainer._setup``'s non-GAN branch, whose trainable mask is the
+    ``requires_grad`` here).  ``universe_lora.yaml`` names torch's Adam;
+    like the JAX trainer this builds AdamW from its lr and weight_decay."""
     opt = dict(model.opt_kwargs or {})
     _refuse_accumulation(opt)
-    optimizer = adamw(model.named_parameters(), betas=opt.get("betas", (0.8, 0.99)),
+    trainable = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    optimizer = adamw(trainable, betas=opt.get("betas", (0.8, 0.99)),
                       weight_decay=opt.get("weight_decay", 0.0),
                       weight_decay_exclude=opt.get("weight_decay_exclude", ("prelu", "bias")))
     ema_decay = model.train_kwargs.get("ema_decay", 0.0)
@@ -133,9 +149,10 @@ def make_train_step(model: Universe, max_steps: int) -> TrainStep:
                      clipper=make_clipper(model.grad_clip_kwargs))
 
 
-def make_step(model: Universe, max_steps: int):
+def make_step(model, max_steps: int):
     """The training step of ``model``: the GAN step for UNIVERSE++, the
-    score-only step for the plain UNIVERSE."""
+    single-optimizer step for the plain UNIVERSE and the enhancement
+    family."""
     if isinstance(model, UniverseGAN):
         return make_gan_step(model, max_steps)
     return make_train_step(model, max_steps)
@@ -156,10 +173,11 @@ class Trainer:
                  checkpoint_every: Optional[int] = None,
                  max_val_batches: Optional[int] = None,
                  config: Optional[dict] = None, device=None):
-        if not isinstance(model, Universe) or not model.built_for_training:
+        if not (isinstance(model, EnhancementBaseModel)
+                or isinstance(model, Universe) and model.built_for_training):
             raise NotImplementedError(
-                "the port trains a Universe or UniverseGAN built with its training "
-                "nodes (configs/registry.py::instantiate_trainable) only")
+                "the port trains a Universe, UniverseGAN or UniverseLoRA built with its "
+                "training nodes (configs/registry.py::instantiate_trainable) only")
         self.model = model
         self.dm = datamodule
         self.output_dir = Path(output_dir)
@@ -183,7 +201,9 @@ class Trainer:
     def _setup(self):
         from ..configs.registry import instantiate
 
-        init_weights(self.model, self.seed).to(self.device).train()
+        if not isinstance(self.model, UniverseLoRA):
+            init_weights(self.model, self.seed)
+        self.model.to(self.device).train()
         self.step_fn = make_step(self.model, self.max_steps)
         self.ema = self.step_fn.ema
         # the metric suite of validation and test (EvalMetrics by default)
@@ -209,7 +229,8 @@ class Trainer:
             f.write(json.dumps(row) + "\n")
         if "perf/step_time_s" in row:
             losses = " ".join(f"{k[6:]} {row[k]:.4f}" for k in (
-                "train/loss", "train/loss_gen", "train/loss_disc") if k in row)
+                "train/loss", "train/loss_gen", "train/loss_disc", "train/main_loss")
+                if k in row)
             log.info("step %d %s (%.3f s/step, peak %.2f GiB)", step, losses,
                      row["perf/step_time_s"], row.get("perf/peak_mem_gib", 0.0))
 
@@ -272,7 +293,9 @@ class Trainer:
         discriminators or the MDN losses) with the EMA shadow as its
         weights, weight norm folded, in eval mode and without gradients: the
         model validation and test run, whose ConvBlocks the fused kernel
-        takes."""
+        takes.  A LoRA fine-tune keeps its kept discriminators (its
+        validation loss uses them) and its adapters, so its ConvBlocks run
+        unfused."""
         m = self.model
         skip = {id(getattr(m, k)): None for k in m.loss_param_keys()}
         ev = copy.deepcopy(m, skip)
@@ -295,8 +318,8 @@ class Trainer:
     def _bucketed_enhance(self, model, mix, generator=None, noise=None):
         """``enhance`` of mix padded up to its length bucket, cut back."""
         t = mix.shape[1]
-        return model.enhance(self._pad_to_bucket(mix), generator=generator,
-                             noise=noise)[:, :t]
+        kw = {} if noise is None else {"noise": noise}
+        return model.enhance(self._pad_to_bucket(mix), generator=generator, **kw)[:, :t]
 
     def _enhance_and_score(self, model, step, bi, batch, mix, target, generator,
                            noise, enh_metrics, timing):
@@ -326,10 +349,13 @@ class Trainer:
         split (JAX ``Trainer.validate``); updates the adaptive histogram.
         ``draws`` gives the random draws in the order validation takes them
         (for each batch one {"u", "z"} per bin, then {"noise"} for its
-        ``enhance``); without it they come from a generator seeded with
-        ``VAL_SEED``.  ``val_timing`` keeps the wall seconds: the model's
+        ``enhance``; for the enhancement family one {"noise"} per batch for
+        its ``validation_losses``, then {"noise"} for its ``enhance``);
+        without it they come from a generator seeded with ``VAL_SEED``.  ``val_timing`` keeps the wall seconds: the model's
         passes (synchronised; the enhance calls among them) and the host
         metrics."""
+        if not isinstance(self.model, Universe):
+            return self._validate_enhancement(step, draws)
         t_start = time.perf_counter()
         model = self._eval_model()
         n_bins = model.val_kwargs.get("n_bins", 5)
@@ -380,6 +406,49 @@ class Trainer:
             pr_cum[-1] = 1.0 + 1e-5
             self.pr_cum = torch.tensor(pr_cum, dtype=torch.float32, device=self.device)
             self.val_bins = torch.tensor(tb, dtype=torch.float32, device=self.device)
+        for k, vals in enh_metrics.items():
+            metrics[k] = float(np.mean(vals))
+        self.val_timing = {"perf/val_wall_s": time.perf_counter() - t_start,
+                           **{f"perf/val_{k}": v for k, v in timing.items()}}
+        log.info("validation @%d: %s (%s)", step,
+                 {k: round(v, 4) for k, v in metrics.items()},
+                 {k: round(v, 3) for k, v in self.val_timing.items()})
+        return metrics
+
+    def _validate_enhancement(self, step: int, draws: Optional[Iterator[dict]] = None
+                              ) -> Dict[str, float]:
+        """The enhancement family's validation (JAX
+        ``Trainer._validate_enhancement``, reference enhancement/base.py:382-478):
+        the mean of the model's ``validation_losses`` over the val batches
+        (padded to their bucket), then ``enhance`` and the metric suite on
+        the first ``max_enh_batches``."""
+        t_start = time.perf_counter()
+        model = self._eval_model()
+        max_enh = model.val_kwargs.get("max_enh_batches", 4)
+        gen = torch.Generator(device=self.device).manual_seed(VAL_SEED)
+        loss_sums: Dict[str, float] = {}
+        n_batches = 0
+        enh_metrics: Dict[str, list] = {}
+        timing = {"device_s": 0.0, "enhance_s": 0.0, "metrics_s": 0.0}
+        for bi, batch in enumerate(self.dm.val_dataloader()):
+            if self.max_val_batches is not None and bi >= self.max_val_batches:
+                break
+            t0 = time.perf_counter()
+            mix = torch.from_numpy(np.asarray(batch["noisy"])).to(self.device)
+            target = torch.from_numpy(np.asarray(batch["clean"])).to(self.device)
+            d = next(draws) if draws is not None else {}
+            _, vm = model.validation_losses(self._pad_to_bucket(mix),
+                                            self._pad_to_bucket(target), generator=gen,
+                                            draws=d)
+            for k, v in vm.items():
+                loss_sums[k] = loss_sums.get(k, 0.0) + float(v)
+            n_batches += 1
+            timing["device_s"] += time.perf_counter() - t0
+            if bi < max_enh and self.enh_losses:
+                d = next(draws) if draws is not None else {}
+                self._enhance_and_score(model, step, bi, batch, mix, target, gen,
+                                        d.get("noise"), enh_metrics, timing)
+        metrics = {k: v / n_batches for k, v in loss_sums.items()} if n_batches else {}
         for k, vals in enh_metrics.items():
             metrics[k] = float(np.mean(vals))
         self.val_timing = {"perf/val_wall_s": time.perf_counter() - t_start,
@@ -468,7 +537,7 @@ class Trainer:
         """Write ``checkpoints/step_<step>.ckpt`` in the reference's layout,
         then last.json, index.json and best.json."""
         step_fn = self.step_fn
-        sd = {k: v.detach().cpu() for k, v in self.model.state_dict().items()}
+        sd = {self._ckpt_key(k): v.detach().cpu() for k, v in self.model.state_dict().items()}
         opts = optimizers(step_fn)
         ckpt: Dict[str, Any] = {
             "state_dict": sd, "global_step": step,
@@ -478,7 +547,8 @@ class Trainer:
                               for o, count in opts]}
         if self.ema is not None:
             names = ordered_param_names(sd, self.model.model_param_keys())
-            ckpt["ema"] = {"shadow_params": [self.ema.shadow[n].cpu() for n in names],
+            ckpt["ema"] = {"shadow_params": [self.ema.shadow[normalize_key(n)].cpu()
+                                             for n in names],
                            "decay": self.ema.decay,
                            "num_updates": self.ema.num_updates}
         path = self.output_dir / "checkpoints" / f"step_{step:08d}.ckpt"
@@ -487,6 +557,15 @@ class Trainer:
                                self._last_val.get(self.model.val_kwargs.get("main_loss")))
         log.info("saved checkpoint %s", path)
         return path
+
+    def _ckpt_key(self, name: str) -> str:
+        """A state_dict name as the reference's checkpoint writes it: a LoRA
+        fine-tune's EDM score network is ``model._edm_model.``
+        (``normalize_key`` maps it back)."""
+        m = self.model
+        if isinstance(m, EnhancementBaseModel) and getattr(m.model, "with_edm", False):
+            return re.sub(r"^model\.score_model\.", "model._edm_model.", name)
+        return name
 
     def _commit_last_json(self, step: int, path: Path, metric: Optional[float]):
         """last.json -> the newest checkpoint; index.json gains its entry
@@ -528,7 +607,7 @@ class Trainer:
                 last = Path(json.load(f)["path"])
             p = last if last.exists() else p / last.name
         ckpt = torch.load(p, map_location=self.device, weights_only=False)
-        self.model.load_state_dict(ckpt["state_dict"])
+        self.model.load_state_dict({normalize_key(k): v for k, v in ckpt["state_dict"].items()})
         step_fn = self.step_fn
         opts = optimizers(step_fn)
         if len(ckpt["optimizer_states"]) != len(opts):
@@ -542,7 +621,7 @@ class Trainer:
             names = ordered_param_names(ckpt["state_dict"], self.model.model_param_keys())
             with torch.no_grad():
                 for n, s in zip(names, ckpt["ema"]["shadow_params"]):
-                    self.ema.shadow[n].copy_(s)
+                    self.ema.shadow[normalize_key(n)].copy_(s)
             self.ema.num_updates = int(ckpt["ema"]["num_updates"])
         step_fn.step = int(ckpt["global_step"])
         log.info("restored checkpoint %s (step %d)", p, step_fn.step)

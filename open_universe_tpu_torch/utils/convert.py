@@ -15,7 +15,12 @@ names); the leaves differ in layout, by these rules (the JAX package's
 The GAN's discriminators (``loss_mpd``, ``loss_mrd``) are Conv2d trees and
 carry over like the generator; so do the plain UNIVERSE's MDN losses
 (``loss_signal``, ``loss_latent``: a LayerNorm, whose leaves keep their
-layout, and a PReLUConv).  A transform has no parameters.
+layout, and a PReLUConv).  A transform has no parameters.  A LoRA tree
+(JAX ``nn/lora.py``) carries over onto the port's ``LoraLayer`` modules of
+the same names: its ``conv``/``linear``-nested base leaves by the rules
+above, its ``lora_*`` leaves as they are (both sides hold them in torch
+layout), and a ``UniverseLoRA``'s ``{"model": ...}`` root, with the kept
+discriminators, onto its ``model``.
 
 ``fold_weight_norm`` replaces every (weight_g, weight_v) pair by its weight,
 as the inference loader does.

@@ -1,4 +1,6 @@
-"""Batch amplitude normalisation (reference utils/norm.py).
+"""Batch amplitude normalisation (reference utils/norm.py), and the
+waveform helpers the models' ``enhance`` shares: the (B, T, C) view of a
+(T,), (B, T) or (B, T, C) input and back, the RMS and the clip protection.
 
 Waveforms are (B, T, C); statistics run over all non-batch axes.
 """
@@ -66,3 +68,34 @@ def normalize_batch(batch: Sequence[Optional[torch.Tensor]], norm=2,
 
 def denormalize_batch(x, mean, std):
     return x * std + mean
+
+
+def as_batch(x: torch.Tensor) -> torch.Tensor:
+    """(T,), (B, T) or (B, T, C) -> (B, T, C)."""
+    if x.dim() == 1:
+        return x[None, :, None]
+    if x.dim() == 2:
+        return x[:, :, None]
+    if x.dim() > 3:
+        raise ValueError("input should have at most 3 dimensions")
+    return x
+
+
+def like_input(x: torch.Tensor, ndim: int) -> torch.Tensor:
+    """(B, T, C) back to the rank ``ndim`` of the input it came from."""
+    if ndim == 1:
+        return x[0, :, 0]
+    if ndim == 2:
+        return x[:, :, 0]
+    return x
+
+
+def rms(x: torch.Tensor) -> torch.Tensor:
+    """The RMS of each (B, T, C) batch row, shaped (B, 1, 1)."""
+    return torch.sqrt(torch.mean(x**2, dim=(-2, -1), keepdim=True))
+
+
+def clip_protect(x: torch.Tensor) -> torch.Tensor:
+    """Scale down each (batch, channel) signal whose peak exceeds 1."""
+    scale = torch.amax(torch.abs(x), dim=1, keepdim=True)
+    return torch.where(scale > 1.0, x / scale, x)

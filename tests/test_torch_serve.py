@@ -119,9 +119,9 @@ def test_registry_builds_reference_configs_and_names_what_it_lacks():
                             "factor": 0.15}}
     assert type(instantiate({**SERVE_CFG, "transform": stft}).transform).__name__ == \
         "CompressedMagSTFT"
-    with pytest.raises(KeyError, match="MultiResL1SpecLoss"):
+    with pytest.raises(KeyError, match="PhonemeCTCLoss"):
         instantiate({**SERVE_CFG, "transform": {
-            "_target_": "open_universe.losses.MultiResL1SpecLoss"}})
+            "_target_": "open_universe.losses.PhonemeCTCLoss"}})
     bad = {**SERVE_CFG, "losses": {"score_loss": {"_target_": "torch.nn.L1Loss"}}}
     with pytest.raises(NotImplementedError, match="MSE"):
         instantiate(bad)

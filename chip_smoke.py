@@ -154,10 +154,36 @@ Phases, each of which raises (exit code != 0) on failure:
    (e) UNIVERSE++ with a MultiResL1SpecLoss aux loss whose warm-up (0,
    0.5, 1) its 3 full-width steps (batch 8) cross, 0 launches; one narrow
    step at aux weight 0.5 against the CPU with 8b's bounds.
+12. Training at scale.  (a) The UNIVERSE++ GAN step at full width
+   (``universepp_vb_16k``, batch 40 x 2 s of synthetic tones, PyTorch's
+   TF32 defaults, cuDNN deterministic) in four arms: f32, bf16
+   (``training.compute_dtype``), f32 + remat, bf16 + remat: the median of 4
+   step times after the first, the peak memory, 0 launches, every
+   parameter, gradient, AdamW moment and EMA shadow float32; remat against
+   no remat on the first step (same weights, batch, draws): losses <= 1e-6
+   relative, updated parameters <= 1e-5 of each tensor's largest; bf16
+   against f32: losses within 0.1 (|f32| + 1).  The plain UNIVERSE in f32
+   and bf16 at batch 40.  (b) Gradient accumulation: two narrow
+   micro-batches and their update on the card against the CPU with 8b's
+   bounds; ``accumulate_grad_batches=4`` at batch 10 x 2 s at full width,
+   time and peak per update.  (c) Data parallelism: 2 gloo processes, both
+   on cuda:0, 2 narrow GAN and 2 plain-UNIVERSE steps against one process
+   on the global batch (the ranks equal bit for bit; losses <= 1e-6
+   relative; gradients and parameters as ``compare_ddp`` says); then the
+   training entry point under ``torchrun --standalone --nproc_per_node 1``
+   (NCCL; this script in its ``--torchrun-train`` mode) at full width,
+   bf16 and ``accumulate_grad_batches=2``, 4 steps at batch 40, a checkpoint
+   at step 3 (mid-accumulation) and 4, a validation at 4 (its score bins
+   on the bf16 route, 5 x 24 per clip, its enhance on the f32 one, 94 per
+   clip); the resume from step 3 restores every state bit for bit, the
+   accumulators included, and takes step 4; the step-4 checkpoint's
+   ``enhance`` as 8c (94 launches, <= 1e-4).  (d) ``bin.parity`` on phase
+   8a's checkpoint over 4 synthetic 2 s pairs (the report, 94 launches) and
+   ``bin.resample`` (its own process) on phase 7's tree.
 
 The last two lines are a JSON object with one entry per kernel (per-enhance
 sums; each shape's numbers are on the log lines of phases 3c, 4 and 4b; the
-CLI's launches per run of phase 7; phase 10's and 11's launches per path) and
+CLI's launches per run of phase 7; phase 10's, 11's and 12's launches per path) and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
 and prints no result.
 """
@@ -1387,8 +1413,12 @@ def tf32_losses(model, dm):
     return {"max_rel": rel[worst], "worst": worst, "on": losses[0], "off": losses[1]}
 
 
-def phase_train_step_vs_cpu(extra=(), at_step=0, name="train-vs-cpu", grad_floor=0.0):
+def phase_train_step_vs_cpu(extra=(), at_step=0, name="train-vs-cpu", grad_floor=0.0,
+                            calls=1):
     """8b: one GAN step at a narrow width (NARROW_OVERRIDES, plus ``extra``;
+    12b: ``calls`` calls with ``accumulate_grad_batches`` = calls, each on
+    its own draws, the gradients compared being the accumulated mean the
+    update applied;
     taken as step ``at_step``, which sets the aux loss's warm-up weight; 11e
     adds ``grad_floor`` of each group's largest gradient to every tensor's
     gradient bound, and counts elements below 100 times it as small) on the card and
@@ -1415,8 +1445,8 @@ def phase_train_step_vs_cpu(extra=(), at_step=0, name="train-vs-cpu", grad_floor
     clean = (0.05 * rng.standard_normal((2, NARROW_T, 1))).astype(np.float32)
     batch = {"clean": clean,
              "noisy": clean + (0.02 * rng.standard_normal(clean.shape)).astype(np.float32)}
-    draws = {"u": rng.uniform(size=2).astype(np.float32),
-             "z": rng.standard_normal(clean.shape).astype(np.float32)}
+    draws = [{"u": rng.uniform(size=2).astype(np.float32),
+              "z": rng.standard_normal(clean.shape).astype(np.float32)} for _ in range(calls)]
     runs = {}
     for tag, device, tf32 in (("cpu", "cpu", False), ("card", DEVICE, False),
                               ("card_tf32", DEVICE, True)):
@@ -1425,10 +1455,13 @@ def phase_train_step_vs_cpu(extra=(), at_step=0, name="train-vs-cpu", grad_floor
         step.step = at_step
         tf32_flags(tf32)
         try:
-            m = step({k: torch.from_numpy(v).to(device) for k, v in batch.items()},
-                     draws={k: torch.from_numpy(v).to(device) for k, v in draws.items()})
+            for d in draws:
+                m = step({k: torch.from_numpy(v).to(device) for k, v in batch.items()},
+                         draws={k: torch.from_numpy(v).to(device) for k, v in d.items()})
         finally:
             tf32_flags(False)
+        if step.gen_updates != 1:
+            raise AssertionError(f"{name}: {calls} calls made {step.gen_updates} updates")
         runs[tag] = ({k: float(v) for k, v in m.items()},
                      {n: (p.detach().cpu(), p.grad.cpu()) for n, p in model.named_parameters()})
     p0 = dict(base.named_parameters())
@@ -1570,8 +1603,9 @@ def trainer_state(tr) -> dict:
     names = ordered_param_names(sd, tr.model.model_param_keys())
     opts = optimizers(step)
     return {"state_dict": sd, "global_step": step.step,
-            "optimizer_states": [o.state_dict() for o, _ in opts],
-            "updates": [getattr(step, count) for _, count in opts],
+            "optimizer_states": [o.state_dict() for o, _, _ in opts],
+            "updates": [getattr(step, count) for _, count, _ in opts],
+            "grad_accumulators": [acc.state_dict() for _, _, acc in opts],
             "ema": [tr.ema.shadow[n] for n in names], "num_updates": tr.ema.num_updates}
 
 
@@ -2473,6 +2507,495 @@ def phase_aux_gan():
 
 
 
+# ---------------------------------------------------------------- phase 12
+# 12a: full-width steps per arm (SCALE_STEPS timed after the first), batch
+# TRAIN_BATCH x 2 s; 12b: accumulation of ACCUM_K micro-batches of
+# ACCUM_BATCH; 12c: DDP_WORLD gloo ranks on cuda:0 at a narrow width, and the
+# entry point under torchrun (one NCCL process) at full width
+SCALE_STEPS = 4
+SCALE_ARMS = (("f32", []), ("bf16", ["model.training.compute_dtype=bf16"]),
+              ("f32_remat", ["model.training.remat=true"]),
+              ("bf16_remat", ["model.training.compute_dtype=bf16", "model.training.remat=true"]))
+ACCUM_K, ACCUM_BATCH, ACCUM_UPDATES = 4, 10, 2
+DDP_WORLD, DDP_BATCH, DDP_STEPS = 2, 4, 2
+RUN_STEPS, RUN_CKPT, RUN_VAL_PAIRS = 4, 3, 4
+RUN_OVERRIDES = ["model.training.compute_dtype=bf16",
+                 "model.optimizer.accumulate_grad_batches=2"]
+PARITY_PAIRS = 4
+
+
+def synthetic_batch(b: int, t: int, seed: int, device=None) -> dict:
+    """A (b, t, 1) batch of tones in noise, as ``write_pairs`` makes them."""
+    rng = np.random.default_rng(seed)
+    tt = np.arange(t) / FS
+    f0 = rng.uniform(100, 300, size=(b, 1))
+    clean = 0.1 * np.sin(2 * np.pi * f0 * tt) * (1 + 0.5 * np.sin(2 * np.pi * 3 * tt))
+    clean = (clean + 0.01 * rng.standard_normal(clean.shape))[..., None].astype(np.float32)
+    noisy = (clean + 0.05 * rng.standard_normal(clean.shape)).astype(np.float32)
+    return {k: torch.from_numpy(v).to(device or DEVICE) for k, v in
+            (("clean", clean), ("noisy", noisy))}
+
+
+def float32_state(model, step) -> list:
+    """Names of parameters, gradients, optimizer moments and EMA shadows that
+    are not float32."""
+    from open_universe_tpu_torch.train.trainer import optimizers
+
+    bad = [n for n, p in model.named_parameters() if p.dtype != torch.float32
+           or (p.grad is not None and p.grad.dtype != torch.float32)]
+    bad += [f"{k} of {o.__class__.__name__}" for o, _, _ in optimizers(step)
+            for st in o.state.values() for k, v in st.items()
+            if torch.is_tensor(v) and v.dim() > 0 and v.dtype != torch.float32]
+    return bad + [n for n, s in step.ema.shadow.items() if s.dtype != torch.float32]
+
+
+def scale_arm(tag, experiment, overrides, batch, steps, seed=0, keep=False):
+    """Build ``experiment`` at full width with ``overrides`` (weights from
+    ``seed``), take 1 + ``steps`` steps on ``batch`` (the first on fixed
+    draws, the rest drawn from a generator), each synchronised and timed;
+    the first step's losses, the parameters after it (``keep``), the step
+    times, the peak memory, the launches and the non-float32 state."""
+    from open_universe_tpu_torch.configs.registry import instantiate_trainable
+    from open_universe_tpu_torch.configs.resolve import compose
+    from open_universe_tpu_torch.nn.layers import init_weights
+    from open_universe_tpu_torch.ops.kernels import conv_block
+    from open_universe_tpu_torch.train.trainer import make_step
+
+    width = TRAIN_OVERRIDES if experiment == "universepp_vb_16k" else ORIG_OVERRIDES
+    cfg = compose(config_dir(), [f"experiment={experiment}", *width, *overrides])
+    model = init_weights(instantiate_trainable(cfg["model"]), seed=seed).to(DEVICE).train()
+    step = make_step(model, cfg["trainer"]["max_steps"])
+    b = batch["noisy"].shape[0]
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    first = {"u": torch.rand(b, generator=g, device=DEVICE),
+             "z": torch.randn(batch["clean"].shape, generator=g, device=DEVICE)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    conv_block.launches.clear()
+    times, losses, after = [], None, None
+    for i in range(1 + steps):
+        t0 = time.perf_counter()
+        m = step(batch, generator=g, draws=first if i == 0 else None)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            losses = {k: float(v) for k, v in m.items() if k.startswith("train/")}
+            if keep:
+                after = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+    out = {"first_step_s": times[0], "median_step_s": float(np.median(times[1:])),
+           "step_s": times, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": sum(conv_block.launches.values()), "first_losses": losses,
+           "not_float32": float32_state(model, step)}
+    log(f"[scale {tag}] {experiment} {overrides}: batch {b} x 2 s, first step "
+        f"{times[0]:.3f} s, median after it {out['median_step_s']:.3f} s, peak "
+        f"{out['peak_mem_gib']:.2f} GiB, launches {out['launches']}; loss "
+        f"{losses.get('train/loss_gen', losses.get('train/loss'))}")
+    if out["launches"] or out["not_float32"] or not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"scale {tag}: launches {out['launches']}, not float32 "
+                             f"{out['not_float32'][:5]}, losses {losses}")
+    del model, step
+    torch.cuda.empty_cache()
+    return out, after
+
+
+def compare_updates(tag, a, b, la, lb, loss_tol, param_tol):
+    """Losses (relative) and parameters after a step (of each tensor's
+    largest) of two arms."""
+    loss_rel = max(abs(la[k] - lb[k]) / max(abs(lb[k]), 1e-12) for k in lb)
+    param_rel = max(((a[n] - p).abs().max() / max(p.abs().max(), 1e-30)).item()
+                    for n, p in b.items()) if a is not None else None
+    log(f"[scale {tag}] first step: losses max relative {loss_rel:.3e} (bound {loss_tol}); "
+        f"parameters after it max|d| / max|p| {param_rel if param_rel is None else f'{param_rel:.3e}'}"
+        f" (bound {param_tol})")
+    if not loss_rel <= loss_tol or (param_rel is not None and not param_rel <= param_tol):
+        raise AssertionError(f"scale {tag}: losses {loss_rel}, parameters {param_rel}")
+    return {"loss_rel": loss_rel, "param_rel": param_rel}
+
+
+def phase_scale():
+    """12a: the UNIVERSE++ GAN step at full width (universepp_vb_16k, batch
+    40 x 2 s, PyTorch's TF32 defaults, cuDNN deterministic) in four arms:
+    f32, bf16, f32 + remat, bf16 + remat: the median step time after the
+    first, the peak memory, 0 launches, every parameter, gradient, Adam
+    moment and EMA shadow float32.  Remat against no remat on the first
+    step (same weights, batch and draws): losses <= 1e-6 relative, the
+    updated parameters <= 1e-5 of each tensor's largest.  bf16 against f32
+    on the first step: losses within 0.1 (|f32| + 1).  Then the plain
+    UNIVERSE (universe_original_vb_16k) in f32 and bf16 at batch 40."""
+    batch = synthetic_batch(TRAIN_BATCH, int(CLIP_S * FS), seed=12)
+    torch.backends.cudnn.deterministic = True
+    tf32_flags(True)
+    arms, kept = {}, {}
+    try:
+        for tag, ov in SCALE_ARMS:
+            arms[tag], kept[tag] = scale_arm(tag, "universepp_vb_16k", ov, batch, SCALE_STEPS,
+                                             keep=True)
+        checks = {}
+        for plain, remat in (("f32", "f32_remat"), ("bf16", "bf16_remat")):
+            checks[remat] = compare_updates(f"{remat} vs {plain}", kept[remat], kept[plain],
+                                            arms[remat]["first_losses"],
+                                            arms[plain]["first_losses"], 1e-6, 1e-5)
+        kept.clear()
+        f32l, bf16l = arms["f32"]["first_losses"], arms["bf16"]["first_losses"]
+        bf16_rel = max(abs(bf16l[k] - v) / (abs(v) + 1.0) for k, v in f32l.items())
+        log(f"[scale bf16 vs f32] first step: losses max |d| / (|f32| + 1) {bf16_rel:.3e} "
+            f"(bound 0.1)")
+        if not bf16_rel <= 0.1:
+            raise AssertionError(f"bf16 losses differ from f32 by {bf16_rel}")
+        checks["bf16_vs_f32"] = bf16_rel
+        orig = {}
+        for tag, ov in (("orig_f32", []), ("orig_bf16", ["model.training.compute_dtype=bf16"])):
+            orig[tag], _ = scale_arm(tag, ORIG, ov, batch, SCALE_STEPS, seed=1)
+    finally:
+        tf32_flags(False)
+        torch.backends.cudnn.deterministic = False
+    log(f"[scale] {card_line()}: median step s / peak GiB at batch {TRAIN_BATCH} x 2 s: "
+        + ", ".join(f"{k} {v['median_step_s']:.3f} / {v['peak_mem_gib']:.2f}"
+                    for k, v in {**arms, **orig}.items()))
+    return {"batch": TRAIN_BATCH, "steps": 1 + SCALE_STEPS, "arms": arms, "checks": checks,
+            "universe_original": orig}
+
+
+def phase_accumulation(f32_arm):
+    """12b: (narrow) two micro-batches then one update on the card against
+    the CPU with 8b's bounds; (full width) accumulate_grad_batches=ACCUM_K
+    at batch ACCUM_BATCH x 2 s, f32, ACCUM_UPDATES updates: the time and the
+    peak memory per update against 12a's f32 arm at batch 40."""
+    vs_cpu = phase_train_step_vs_cpu(extra=("model.optimizer.accumulate_grad_batches=2",),
+                                     name="accum-vs-cpu", calls=2)
+    batch = synthetic_batch(ACCUM_BATCH, int(CLIP_S * FS), seed=13)
+    tf32_flags(True)
+    try:
+        out, _ = scale_arm("accum", "universepp_vb_16k",
+                           [f"model.optimizer.accumulate_grad_batches={ACCUM_K}"], batch,
+                           ACCUM_K * ACCUM_UPDATES - 1)
+    finally:
+        tf32_flags(False)
+    calls = out["step_s"]
+    per_update = [sum(calls[i:i + ACCUM_K]) for i in range(0, len(calls), ACCUM_K)]
+    log(f"[accum] {card_line()}: {ACCUM_K} x batch {ACCUM_BATCH} per update: "
+        f"{per_update} s per update (the first holds the first call), peak "
+        f"{out['peak_mem_gib']:.2f} GiB, launches {out['launches']}; batch "
+        f"{TRAIN_BATCH} in one step (12a f32): {f32_arm['median_step_s']:.3f} s, "
+        f"{f32_arm['peak_mem_gib']:.2f} GiB")
+    return {"card_vs_cpu": vs_cpu, "k": ACCUM_K, "micro_batch": ACCUM_BATCH,
+            "update_s": per_update, "peak_mem_gib": out["peak_mem_gib"],
+            "launches": out["launches"], "call_s": calls}
+
+
+def ddp_jobs(device) -> dict:
+    """DDP_STEPS steps of the narrow GAN step (NARROW_OVERRIDES) and of the
+    narrow plain UNIVERSE (NARROW_ORIG_OVERRIDES) on a global batch of
+    DDP_BATCH x NARROW_T with fixed draws, in this process's share of the
+    job: the losses, step 1's (averaged) gradients, the parameters after."""
+    from open_universe_tpu_torch.configs.registry import instantiate_trainable
+    from open_universe_tpu_torch.configs.resolve import compose
+    from open_universe_tpu_torch.nn.layers import init_weights
+    from open_universe_tpu_torch.train.trainer import make_step
+
+    out = {}
+    for name, exp, ov in (("gan", "universepp_vb_16k", NARROW_OVERRIDES),
+                          ("orig", ORIG, NARROW_ORIG_OVERRIDES)):
+        cfg = compose(config_dir(), [f"experiment={exp}", *ov])
+        model = init_weights(instantiate_trainable(cfg["model"]), seed=3).to(device).train()
+        step = make_step(model, cfg["trainer"]["max_steps"])
+        rng = np.random.default_rng(6)
+        res = {"losses": []}
+        for i in range(DDP_STEPS):
+            batch = synthetic_batch(DDP_BATCH, NARROW_T, seed=20 + i, device=device)
+            draws = {"u": torch.from_numpy(rng.uniform(size=DDP_BATCH).astype(np.float32)),
+                     "z": torch.from_numpy(rng.standard_normal(
+                         (DDP_BATCH, NARROW_T, 1)).astype(np.float32))}
+            m = step(batch, draws={k: v.to(device) for k, v in draws.items()})
+            res["losses"].append({k: float(v) for k, v in m.items() if k.startswith("train/")})
+            if i == 0:
+                res["grads"] = {n: p.grad.detach().cpu().clone()
+                                for n, p in model.named_parameters() if p.grad is not None}
+        res["params"] = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+        out[name] = res
+    return out
+
+
+def ddp_worker(rank: int, init: str, out_dir: str, device: str) -> None:
+    """One gloo rank of 12c on ``device`` (every rank on cuda:0)."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{init}", world_size=DDP_WORLD,
+                            rank=rank)
+    try:
+        tf32_flags(False)
+        torch.backends.cudnn.deterministic = True
+        torch.save(ddp_jobs(torch.device(device)), os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def compare_ddp(name, ranks, one):
+    """The ranks against each other (bit for bit) and against one process:
+    losses <= 1e-6 relative; step 1's gradients <= 1e-5 of each tensor's
+    largest (1e-4 for one element) plus 1e-7 of the largest (1e-4 for the
+    GAN, whose mel and feature-matching L1s flip where the two runs round
+    apart); parameters <= 1e-5 of each tensor's largest, elements whose
+    gradient is below 1e-2 of their tensor's largest or 1e-7 aside (AdamW's
+    +-lr), counted and held to 1 % of the elements."""
+    r0, r1 = ranks
+    bad = [n for n, p in r0["params"].items() if not torch.equal(p, r1["params"][n])]
+    loss_rel = max(abs(a[k] - v) / max(abs(v), 1e-12)
+                   for a, b in zip(r0["losses"], one["losses"]) for k, v in b.items())
+    top = max(g.abs().max().item() for g in one["grads"].values())
+    rel = 1e-4 if name == "gan" else 1e-5
+    grad_rel, failed, small, n_el = 0.0, [], 0, 0
+    for n, g in one["grads"].items():
+        scale = g.abs().max().item()
+        err = (r0["grads"][n] - g).abs().max().item()
+        grad_rel = max(grad_rel, err / max(scale, 1e-30))
+        if not err <= max(rel, 1e-4 if g.numel() == 1 else rel) * scale + 1e-7 * top:
+            failed.append(f"gradient of {n}: {err / max(scale, 1e-30):.3e}")
+        p, want = r0["params"][n], one["params"][n]
+        diff = (p - want).abs()
+        over = diff > 1e-5 * want.abs().max()
+        tiny = (g.abs() < 1e-2 * scale) | (g.abs() < 1e-7)
+        if (over & ~tiny).any():
+            failed.append(f"parameter {n}")
+        small += int(over.sum())
+        n_el += p.numel()
+    log(f"[ddp {name}] {DDP_WORLD} gloo ranks on cuda:0 vs one process, {DDP_STEPS} steps: "
+        f"ranks differ at {len(bad)} tensors; losses max rel {loss_rel:.3e}; step 1 gradients "
+        f"max|d| / max|g| {grad_rel:.3e}; small-gradient elements past 1e-5: {small} of {n_el}")
+    if bad or not loss_rel <= 1e-6 or failed or small > 1e-2 * n_el:
+        raise AssertionError(f"ddp {name}: ranks {bad[:3]}, losses {loss_rel}, {failed[:5]}, "
+                             f"small {small}")
+    return {"loss_rel": loss_rel, "grad_rel": grad_rel, "small_gradient_elements": small}
+
+
+def torchrun(spec: dict, timeout: int = 600) -> dict:
+    """This script under ``torchrun --standalone --nproc_per_node 1``
+    (NCCL) in its ``--torchrun-train`` mode on ``spec``; its result."""
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           "--nproc_per_node", "1", os.path.abspath(__file__),
+                           "--torchrun-train", path],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        if line.startswith("["):
+            log(line)
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun {spec['mode']}: exit {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    with open(spec["out"]) as f:
+        result = json.load(f)
+    result["torchrun_wall_s"] = wall
+    return result
+
+
+def torchrun_child(spec_path: str) -> int:
+    """The training entry point in one torchrun process: ``fit`` (counting
+    the launches of the steps, the validation and the test), or a restore
+    from ``ckpt`` held against the checkpoint bit for bit, then ``fit``."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from open_universe_tpu_torch.parallel import mesh
+    from open_universe_tpu_torch.train.__main__ import main as train_main
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    if not torch.cuda.is_available():  # a rehearsal on the CPU: nothing to wait for
+        torch.cuda.synchronize = lambda *a: None
+        torch.cuda.max_memory_allocated = lambda *a: 0
+    tf32_flags(True)
+    out = {"mode": spec["mode"]}
+    if spec["mode"] == "fit":
+        with CountedEval() as counted:
+            t0 = time.perf_counter()
+            trainer = train_main(spec["args"])
+            torch.cuda.synchronize()
+            out["fit_s"] = time.perf_counter() - t0
+        calls = [{"kind": c["kind"], "routes": by_route(c["launches"]),
+                  "entries": by_entry(c["launches"]), "timing": c["timing"]}
+                 for c in counted.calls]
+        out.update(steps_launches=counted.steps, calls=calls,
+                   run_dir=str(trainer.output_dir), world=mesh.world_size(),
+                   backend=torch.distributed.get_backend(),
+                   not_float32=float32_state(trainer.model, trainer.step_fn),
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    else:
+        resumed = train_main(spec["args"] + [f"ckpt_path={spec['ckpt']}", "train=false"])
+        saved = torch.load(spec["ckpt"], map_location=resumed.device, weights_only=False)
+        restored = trainer_state(resumed)
+        bad = same_state(restored, {
+            "state_dict": saved["state_dict"], "global_step": saved["global_step"],
+            "optimizer_states": saved["optimizer_states"],
+            "updates": [s["updates"] for s in saved["lr_schedulers"]],
+            "grad_accumulators": saved["grad_accumulators"],
+            "ema": saved["ema"]["shadow_params"], "num_updates": saved["ema"]["num_updates"]})
+        counts = {"global_step": restored["global_step"], "updates": restored["updates"],
+                  "mini_steps": [a["mini_step"] for a in restored["grad_accumulators"]]}
+        want = {"global_step": saved["global_step"],
+                "updates": [s["updates"] for s in saved["lr_schedulers"]],
+                "mini_steps": [a["mini_step"] for a in saved["grad_accumulators"]]}
+        resumed.fit()
+        out.update(bad=bad, counts=counts, want=want, step=resumed.step_fn.step,
+                   updates=[resumed.step_fn.gen_updates, resumed.step_fn.disc_updates])
+    if mesh.is_main():
+        with open(spec["out"], "w") as f:
+            json.dump(out, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_data_parallel():
+    """12c: (gloo) DDP_WORLD ranks on cuda:0 at a narrow width, 2 GAN and 2
+    plain-UNIVERSE steps, against one process on the global batch
+    (``compare_ddp``); (NCCL) the training entry point under torchrun, one
+    process, at full width with bf16 and accumulate_grad_batches=2: 4
+    steps at batch 40, a checkpoint at step 3 (mid-accumulation) and at 4,
+    a validation at 4 (RUN_VAL_PAIRS clips; its score bins in bf16, its
+    enhance in f32: 5 x 24 per clip on the bf16 route, 94 per enhanced clip
+    on the f32 one); a resume from step 3 restores the state, the
+    accumulator included, bit for bit, and takes step 4."""
+    import glob
+    import shutil
+
+    tmp = tempfile.mkdtemp()
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=ddp_worker,
+                         args=(r, os.path.join(tmp, "rendezvous"), tmp, DEVICE))
+             for r in range(DDP_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        tf32_flags(False)
+        torch.backends.cudnn.deterministic = True
+        one = ddp_jobs(torch.device(DEVICE))
+    finally:
+        torch.backends.cudnn.deterministic = False
+        for p in procs:
+            p.join(timeout=600)
+            if p.is_alive():
+                p.kill()
+    if [p.exitcode for p in procs] != [0] * DDP_WORLD:
+        raise AssertionError(f"ddp ranks exited {[p.exitcode for p in procs]}")
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+             for r in range(DDP_WORLD)]
+    gloo = {name: compare_ddp(name, [r[name] for r in ranks], one[name])
+            for name in ("gan", "orig")}
+    gloo["wall_s"] = time.perf_counter() - t0
+
+    data, exp = os.path.join(tmp, "data"), os.path.join(tmp, "exp")
+    write_pairs(data, TRAIN_BATCH, TRAIN_PAIR_S, seed=18)
+    write_pairs(data, RUN_VAL_PAIRS, np.linspace(1.3, 3.1, RUN_VAL_PAIRS), seed=19,
+                split="val")
+    args = ["experiment=universepp_vb_16k", f"device={DEVICE}",
+            f"datamodule.datasets.vb-train-16k.audio_path={data}",
+            f"datamodule.train.dl_opts.batch_size={TRAIN_BATCH}",
+            f"trainer.max_steps={RUN_STEPS}", f"trainer.val_check_interval={RUN_STEPS}",
+            f"trainer.checkpoint_every={RUN_CKPT}", "trainer.log_every=1", "trainer.mesh_dp=1",
+            *TRAIN_OVERRIDES, *RUN_OVERRIDES]
+    first = torchrun({"mode": "fit", "args": args + [f"path.exp_root={exp}/first"],
+                      "out": os.path.join(tmp, "first.json")})
+    (run_dir,) = glob.glob(os.path.join(exp, "first", "universepp_vb_16k", "*"))
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    train_rows = [r for r in rows if "train/loss_gen" in r]
+    for r in train_rows:
+        log(f"[torchrun] step {r['step']}: loss_gen {r['train/loss_gen']:.4f}, loss_disc "
+            f"{r['train/loss_disc']:.4f}, {r['perf/step_time_s']:.3f} s, peak "
+            f"{r.get('perf/peak_mem_gib', float('nan')):.2f} GiB")
+    vals = [c for c in first["calls"] if c["kind"] == "validate"]
+    routes = vals[0]["routes"] if vals else {}
+    want = {BF16: N_BINS * (COND_BLOCKS + SCORE_BLOCKS) * RUN_VAL_PAIRS,
+            F32: PATH_LAUNCHES * min(RUN_VAL_PAIRS, MAX_ENH)}
+    ckpts = sorted(glob.glob(os.path.join(run_dir, "checkpoints", "*.ckpt")))
+    log(f"[torchrun] {first['world']} process ({first['backend']}), {len(train_rows)} steps, "
+        f"{len(vals)} validation: launches {routes} (expected {want}); steps launched "
+        f"{first['steps_launches']}; checkpoints {[os.path.basename(c) for c in ckpts]}; "
+        f"not float32 {first['not_float32'][:3]}; {first['torchrun_wall_s']:.1f} s")
+    if (first["world"], first["backend"]) != (1, "nccl") or len(train_rows) != RUN_STEPS \
+            or len(vals) != 1 or routes != want or len(vals[0]["entries"]) != 2 \
+            or first["steps_launches"] \
+            or first["not_float32"] or len(ckpts) != 2 or not all(
+                np.isfinite(v) for r in train_rows for k, v in r.items() if k.startswith("train/")):
+        raise AssertionError(f"torchrun run: {first}")
+    resumed = torchrun({"mode": "resume", "args": args + [f"path.exp_root={exp}/resumed"],
+                        "ckpt": ckpts[0], "out": os.path.join(tmp, "resumed.json")})
+    log(f"[torchrun] resumed from {os.path.basename(ckpts[0])}: restored state differs at "
+        f"{resumed['bad'][:5]} ({len(resumed['bad'])} paths); counts {resumed['counts']} "
+        f"(the checkpoint's {resumed['want']}); then step {resumed['step']}, updates "
+        f"{resumed['updates']}; {resumed['torchrun_wall_s']:.1f} s")
+    if resumed["bad"] or resumed["counts"] != resumed["want"] or \
+            resumed["want"]["mini_steps"] != [1, 1] or resumed["step"] != RUN_STEPS or \
+            resumed["updates"] != [2, 2]:
+        raise AssertionError(f"torchrun resume: {resumed}")
+    trained = phase_trained_checkpoint(ckpts[-1])
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {"gloo": gloo, "torchrun": {
+        "steps": RUN_STEPS, "batch": TRAIN_BATCH, "overrides": RUN_OVERRIDES,
+        "step_s": [r["perf/step_time_s"] for r in train_rows],
+        "peak_mem_gib": first["peak_mem_gib"], "validation_launches": routes,
+        "validation_entries": vals[0]["entries"],
+        "validation_timing": vals[0]["timing"], "fit_s": first["fit_s"],
+        "wall_s": first["torchrun_wall_s"], "resume_wall_s": resumed["torchrun_wall_s"],
+        "resumed_mini_steps": resumed["want"]["mini_steps"],
+        "trained_checkpoint_enhance": trained}}
+
+
+def phase_parity_resample(ckpt: str):
+    """12d: ``bin.parity`` (in this process, default device) on ``ckpt`` over
+    PARITY_PAIRS synthetic 2 s noisy/clean pairs: the report written, every
+    row finite, 94 launches (one batch); then ``bin.resample`` (its own
+    process) on phase 7's tree of files: every wav at 16 kHz."""
+    import shutil
+
+    from open_universe_tpu_torch.bin import parity
+    from open_universe_tpu_torch.data.audio import load_audio
+    from open_universe_tpu_torch.ops.kernels import conv_block
+
+    tmp = tempfile.mkdtemp()
+    write_pairs(tmp, PARITY_PAIRS, CLIP_S, seed=22, split="test")
+    out = os.path.join(tmp, "parity")
+    conv_block.launches.clear()
+    t0 = time.perf_counter()
+    rc = parity.main(["--model", ckpt, "--noisy-dir", os.path.join(tmp, "test", "noisy"),
+                      "--clean-dir", os.path.join(tmp, "test", "clean"), "--output", out,
+                      "--metrics", "si-sdr", "lsd", "stoi-ext"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = by_entry(dict(conv_block.launches))
+    with open(os.path.join(out, "parity_report.json")) as f:
+        report = json.load(f)
+    log(f"[parity] rc {rc}, {wall:.1f} s, launches {launches}; report "
+        f"{[(r['metric'], r['ours'], r.get('delta')) for r in report['rows']]}, parity "
+        f"{report['parity']}")
+    if rc != 0 or report["n_files"] != PARITY_PAIRS or sum(launches.values()) != PATH_LAUNCHES \
+            or not all(np.isfinite(r["ours"]) for r in report["rows"]):
+        raise AssertionError(f"parity CLI: rc {rc}, launches {launches}, {report}")
+    src, dst = os.path.join(tmp, "tree"), os.path.join(tmp, "resampled")
+    write_tree(src, CLI_FILES)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "open_universe_tpu_torch.bin.resample", src,
+                           dst, "--fs", str(FS), "--workers", "2"],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=300)
+    wavs = [f for f in CLI_FILES if f[0].endswith(".wav")]
+    got = {}
+    for name, fs, _, seconds in wavs:
+        x, fs_out = load_audio(os.path.join(dst, name))
+        got[name] = (fs_out, x.shape[-1], math.ceil(int(fs * seconds) * FS / fs))
+    log(f"[resample] rc {proc.returncode}, {time.perf_counter() - t0:.1f} s: (rate, length, "
+        f"expected length) {got}")
+    if proc.returncode != 0 or any(v[0] != FS or v[1] != v[2] for v in got.values()):
+        raise AssertionError(f"resample CLI: {proc.returncode} {proc.stderr[-2000:]} {got}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {"parity_launches": launches, "parity_report": report["rows"], "parity_wall_s": wall,
+            "resampled": {k: list(v) for k, v in got.items()}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2542,6 +3065,14 @@ def main() -> int:
     lap("11d LoRA checkpoint")
     lora["aux_gan"] = phase_aux_gan()
     lap("11e UNIVERSE++ aux loss")
+    scale = phase_scale()
+    lap("12a bf16 and remat")
+    scale["accumulation"] = phase_accumulation(scale["arms"]["f32"])
+    lap("12b accumulation")
+    scale["data_parallel"] = phase_data_parallel()
+    lap("12c data parallelism")
+    scale["clis"] = phase_parity_resample(ckpt)
+    lap("12d parity and resample CLIs")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     def cli_entry(entry):
@@ -2620,6 +3151,11 @@ def main() -> int:
         # steps, validation, test, the adapter model's enhance and CLI),
         # merge_lora's enhance through the kernel, UNIVERSE++ with the aux loss
         "lora": lora,
+        # phase 12: training at scale (bf16, remat, accumulation: 0 launches
+        # in the steps), data parallelism (gloo ranks, the entry point under
+        # torchrun: its validation's launches by route, its checkpoint's
+        # enhance), the parity and resample CLIs
+        "scale": scale,
     }, {
         "name": "fused_conv_chain_rows",
         "route": "cuda",
@@ -2658,6 +3194,14 @@ def main() -> int:
         "lora_launches": {**lora["launches"], **{
             f"merged_enhance_{k}": lora["checkpoint"][k]["launches"].get(
                 "fused_conv_chain_rows", 0) for k in ("f32", "bf16")}},
+        # phase 12: launches through this entry (0 in every training step)
+        "scale_launches": {
+            "steps": {k: v["launches"] for k, v in scale["arms"].items()},
+            "torchrun_validation": scale["data_parallel"]["torchrun"][
+                "validation_entries"].get("fused_conv_chain_rows", 0),
+            "torchrun_checkpoint_enhance": scale["data_parallel"]["torchrun"][
+                "trained_checkpoint_enhance"]["launches"].get("fused_conv_chain_rows", 0),
+            "parity_cli": scale["clis"]["parity_launches"].get("fused_conv_chain_rows", 0)},
     }]}
     for tag, sh in (("batch 128, 16 kHz", shapes), ("batch 128, 24 kHz", shapes_24k),
                     ("rows, batch 16", rows_shapes)):
@@ -2673,4 +3217,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--torchrun-train":
+        sys.exit(torchrun_child(sys.argv[2]))
     sys.exit(main())

@@ -96,15 +96,20 @@ class EnhancementBaseModel(nn.Module):
 
     def training_losses(self, mix: torch.Tensor, target: torch.Tensor,
                         generator: Optional[torch.Generator] = None,
-                        draws: Optional[Dict[str, Any]] = None):
+                        draws: Optional[Dict[str, Any]] = None,
+                        rows: Optional[slice] = None):
         """(loss, metrics) on a raw (B, T, C) batch; ``draws["perm"]`` gives
-        dynamic mixing's permutation, else it comes from ``generator``."""
+        dynamic mixing's permutation, else it comes from ``generator``.
+        ``rows``: a data-parallel rank's rows (``parallel/mesh.py``), taken
+        after the mixing."""
         if self.train_kwargs.get("dynamic_mixing", False):
             perm = (draws or {}).get("perm")
             if perm is None:
                 perm = torch.randperm(mix.shape[0], generator=generator, device=mix.device)
             mix = target + (mix - target)[torch.as_tensor(perm, device=mix.device)]
         (mix, target), *_ = self.normalize_batch((mix, target))
+        if rows is not None:
+            mix, target = mix[rows], target[rows]
         loss, losses = self.compute_losses(self.forward(mix), target)
         return loss, {"train/main_loss": loss, **{f"train/{k}": v for k, v in losses.items()}}
 

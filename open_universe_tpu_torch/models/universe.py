@@ -15,8 +15,23 @@ modes, ``adaptive`` from validation's histogram of score losses by time bin.
 losses (``models/mdn.py``): the conditioner's auxiliary signal against the
 target, its latent against the target's mel spectrogram, each skipped when
 not finite (``finite_or_skip``).  ``training_losses`` is the score-only
-training step's objective (``train/steps.py::TrainStep``).  Not ported:
-bf16 training (``training.compute_dtype``) and ``remat``.
+training step's objective (``train/steps.py::TrainStep``).
+
+Mixed precision (``training.compute_dtype: bf16``) is the JAX package's
+policy, not ``torch.autocast``'s: the networks of ``model_param_keys()``
+run with their parameters cast to bfloat16 (``cast_call``, JAX's
+``_cast_tree``; the casts are differentiable, so the gradients, the
+optimizer and EMA stay on the float32 parameters), ``mix`` and ``target``
+are cast, sigma follows the networks' dtype into ``x_t`` and the score
+network, and the losses are computed in float32 from upcast outputs
+(``utils/params.py::at_least_f32``).  The MDN loss modules keep float32
+parameters, but their layers cast them to their bf16 inputs, on both sides.
+The score noise is drawn in float32 and cast to bfloat16 (JAX draws it in
+bfloat16; given draws are cast the same way).  ``training.remat`` recomputes
+the conditioner's and the score's forwards in the backward
+(``torch.utils.checkpoint``, non-reentrant), where JAX wraps the same two
+calls in ``jax.checkpoint``: the results are the same, memory and time
+change.
 """
 from __future__ import annotations
 
@@ -26,9 +41,12 @@ from typing import Any, Dict, Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import kernels
+from ..parallel import mesh
 from ..utils.norm import as_batch, clip_protect, like_input, normalize_batch, rms
+from ..utils.params import at_least_f32
 from ..utils.random import center_truncated_normal
 from ..utils.stats import signal_median
 from .condition import ConditionerNetwork
@@ -44,19 +62,39 @@ def _cfg(d: Optional[Dict[str, Any]], **defaults) -> Dict[str, Any]:
     return out
 
 
-def finite_or_skip(loss_fn, est: torch.Tensor):
+def finite_or_skip(loss_fn, est: torch.Tensor, across_ranks: bool = False):
     """The reference's skip of a non-finite loss (universe.py:526-539)
     without a host sync: ``bad`` stays on the device.  A plain ``where`` on
     the loss would still send NaN back (its zero gradient times the NaN
     partials of the bad forward), so the loss is recomputed at zeroed
     estimates where it is not finite, whose partials are finite, and gated
-    out of the total.  Returns (the term for the total, the raw value for
-    the metrics)."""
+    out of the total.  ``across_ranks``: a data-parallel step's shard, which
+    skips where any rank's loss is not finite (JAX's loss is the global
+    batch's).  Returns (the term for the total, the raw value for the
+    metrics)."""
     with torch.no_grad():
         raw = loss_fn(est.detach())
     bad = ~torch.isfinite(raw)
+    if across_ranks:
+        bad = mesh.any_rank(bad)
     safe = loss_fn(torch.where(bad, torch.zeros_like(est), est))
     return torch.where(bad, torch.zeros_like(safe), safe), raw
+
+
+def cast_call(module: nn.Module, dtype: Optional[torch.dtype], *args, **kwargs):
+    """``module(*args, **kwargs)`` with its floating parameters cast to
+    ``dtype`` (JAX ``Universe._cast_tree``); None calls it as it is."""
+    if dtype is None:
+        return module(*args, **kwargs)
+    cast = {n: p.to(dtype) for n, p in module.named_parameters() if p.is_floating_point()}
+    return torch.func.functional_call(module, cast, args, kwargs)
+
+
+def maybe_remat(remat: bool, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, recomputed in the backward with ``remat``."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+    return fn(*args, **kwargs)
 
 
 class Universe(nn.Module):
@@ -111,18 +149,18 @@ class Universe(nn.Module):
         if self.built_for_training:
             self.init_losses()
 
-    def _refuse_unported(self):
-        for key, what in ((self.train_kwargs.get("compute_dtype"), "bf16 training"),
-                          (self.train_kwargs.get("remat"), "remat")):
-            if key:
-                raise NotImplementedError(f"{what} is not ported (ROADMAP queue 1)")
+    def _train_dtype(self) -> Optional[torch.dtype]:
+        """The networks' dtype in training (``training.compute_dtype``):
+        bfloat16 for bf16, else None (float32)."""
+        if self.train_kwargs.get("compute_dtype") in ("bf16", "bfloat16"):
+            return torch.bfloat16
+        return None
 
     def init_losses(self):
         """The two mixture-density losses of the weights that are > 0: the
         signal's on the conditioner's auxiliary output against the target
         (and the noise, with ``with_noise_target``), the latent's on its
         bottleneck against the target's mel spectrogram."""
-        self._refuse_unported()
         lk = self.losses_kwargs
         weights = lk.get("weights", {})
         cond_in = self.condition_model.input_channels
@@ -188,13 +226,15 @@ class Universe(nn.Module):
             "noise": self.edm_kwargs["noise"],
         }
 
-    def score(self, x: torch.Tensor, sigma: torch.Tensor, cond) -> torch.Tensor:
-        """Score function; applies the EDM wrapper when configured."""
+    def score(self, x: torch.Tensor, sigma: torch.Tensor, cond,
+              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """Score function; applies the EDM wrapper when configured.  The
+        score network's parameters are cast to ``dtype`` (``cast_call``)."""
         if not self.with_edm:
-            return self.score_model(x, sigma, cond)
+            return cast_call(self.score_model, dtype, x, sigma, cond)
         w = self._edm_weights(sigma)
-        net_out = self.score_model(w["in"][:, None, None] * x,
-                                   w["noise"] * sigma, cond)
+        net_out = cast_call(self.score_model, dtype, w["in"][:, None, None] * x,
+                            w["noise"] * sigma, cond)
         speech_est = w["skip"][:, None, None] * x + w["out"][:, None, None] * net_out
         return (speech_est - x) / (sigma[:, None, None] ** 2)
 
@@ -271,19 +311,28 @@ class Universe(nn.Module):
                        z: Optional[torch.Tensor] = None,
                        pr_cum: Optional[torch.Tensor] = None,
                        bins: Optional[torch.Tensor] = None,
-                       dice: Optional[torch.Tensor] = None):
+                       dice: Optional[torch.Tensor] = None,
+                       rows: Optional[slice] = None):
         """The losses on amplitude-normalised (B, T, C) inputs (JAX
         ``Universe.compute_losses``), sigma drawn with ``time_sampling`` in
         [t_min, t_max].  The draws (sigma's uniform ``u``, adaptive's bin
         draws ``dice``, the noise ``z`` shaped like the transformed target)
-        come from ``generator`` unless given.
+        come from ``generator`` unless given.  ``rows``: a data-parallel
+        rank's rows (``parallel/mesh.py``); the draws are made for the whole
+        batch, and the losses are those of these rows.
 
         train=False: the score loss mean((sigma score(x_t) + z)^2), the loss
         validation bins by time.  train=True: (loss, score loss, signal MDN
         loss, latent MDN loss, time), the loss their sum by
         ``losses.weights``, each MDN term skipped where it is not finite (its
         raw value is returned).  With ``with_noise_target`` the MDN targets
-        hold the noise (mix - target) beside the target."""
+        hold the noise (mix - target) beside the target.  The networks run
+        in ``training.compute_dtype`` (in both modes, as in JAX) and, with
+        ``training.remat`` and train=True, are recomputed in the
+        backward."""
+        dt = self._train_dtype()
+        if dt is not None:
+            mix, target = mix.to(dt), target.to(dt)
         mix_trans, tgt_trans = self.transform(mix), self.transform(target)
         sigma, time = self.sample_sigma(mix.shape[0], time_sampling, t_min, t_max,
                                         generator=generator, u=u, device=mix.device,
@@ -291,12 +340,20 @@ class Universe(nn.Module):
         if z is None:
             z = torch.randn(tgt_trans.shape, generator=generator, device=tgt_trans.device)
         z = torch.as_tensor(z, dtype=tgt_trans.dtype, device=tgt_trans.device)
-        x_t = tgt_trans + sigma[:, None, None] * z
-        cond, y_est, h_est = self._cond_train(mix_trans, mix)
+        if rows is not None:
+            mix, target, mix_trans, tgt_trans, sigma, time, z = (
+                t[rows] for t in (mix, target, mix_trans, tgt_trans, sigma, time, z))
+        # sigma follows the networks' dtype, or x_t (and the score network
+        # with it) would promote back to float32
+        sigma_c = sigma.to(tgt_trans.dtype)
+        x_t = tgt_trans + sigma_c[:, None, None] * z
+        remat = train and bool(self.train_kwargs.get("remat", False))
+        cond, y_est, h_est = self._cond_train(mix_trans, mix, dt, remat)
         if self.detach_cond:
             cond = [c.detach() for c in cond]
-        score = self.score(x_t, sigma, cond)
-        l_score = torch.mean(torch.square(sigma[:, None, None] * score.float() + z.float()))
+        score = maybe_remat(remat, self.score, x_t, sigma_c, cond, dtype=dt)
+        l_score = torch.mean(torch.square(sigma[:, None, None] * at_least_f32(score)
+                                          + at_least_f32(z)))
         if not train:
             return l_score
 
@@ -311,10 +368,12 @@ class Universe(nn.Module):
         if weights.get("latent", 0.0) > 0.0 and h_est is not None:
             mel_target = self._mel_target(target_aux)
             l_latent_term, l_latent = finite_or_skip(
-                lambda e: self._loss_module("latent")(e, mel_target), h_est)
+                lambda e: self._loss_module("latent")(e, mel_target), h_est,
+                across_ranks=rows is not None)
         if weights.get("signal", 0.0) > 0.0:
             l_signal_term, l_signal = finite_or_skip(
-                lambda e: self._loss_module("signal")(e, target_aux_trans), y_est)
+                lambda e: self._loss_module("signal")(e, target_aux_trans), y_est,
+                across_ranks=rows is not None)
         loss = (weights.get("score", 1.0) * l_score
                 + weights.get("signal", 0.0) * l_signal_term
                 + weights.get("latent", 0.0) * l_latent_term)
@@ -338,14 +397,17 @@ class Universe(nn.Module):
                         generator: Optional[torch.Generator] = None,
                         draws: Optional[Dict[str, Any]] = None,
                         pr_cum: Optional[torch.Tensor] = None,
-                        bins: Optional[torch.Tensor] = None):
+                        bins: Optional[torch.Tensor] = None,
+                        rows: Optional[slice] = None):
         """The score-only step's objective on a raw (B, T, C) batch (JAX
         ``Universe.training_losses``): ``dynamic_mixing`` (the noise of the
         batch permuted), normalisation, ``compute_losses(train=True)`` in
         ``training.time_sampling`` (``adaptive`` with validation's
         histogram ``pr_cum``/``bins``).  ``draws`` gives the random draws:
         "perm" the permutation, "u", "dice" and "z" as compute_losses takes
-        them; the rest come from ``generator``.  Returns (loss, metrics)."""
+        them; the rest come from ``generator``.  ``rows`` as compute_losses
+        takes it: the batch and the draws are the whole batch's.  Returns
+        (loss, metrics)."""
         draws = draws or {}
         if self.train_kwargs.get("dynamic_mixing", False):
             perm = draws.get("perm")
@@ -356,14 +418,18 @@ class Universe(nn.Module):
         loss, l_score, l_signal, l_latent, t = self.compute_losses(
             mix, target, train=True, time_sampling=self.train_kwargs["time_sampling"],
             generator=generator, u=draws.get("u"), z=draws.get("z"),
-            pr_cum=pr_cum, bins=bins, dice=draws.get("dice"))
+            pr_cum=pr_cum, bins=bins, dice=draws.get("dice"), rows=rows)
         metrics = {"train/loss": loss, "train/score": l_score, "train/signal": l_signal,
                    "train/latent": l_latent, "train/time_mean": torch.mean(t.float())}
         return loss, metrics
 
-    def _cond_train(self, mix_trans: torch.Tensor, mix_wav: torch.Tensor):
-        """The conditioner's training forward: (conditions, y_hat, h)."""
-        return self.condition_model(mix_trans, x_wav=mix_wav)
+    def _cond_train(self, mix_trans: torch.Tensor, mix_wav: torch.Tensor,
+                    dtype: Optional[torch.dtype] = None, remat: bool = False):
+        """The conditioner's training forward: (conditions, y_hat, h), its
+        parameters cast to ``dtype``, recomputed in the backward with
+        ``remat``."""
+        return maybe_remat(remat, cast_call, self.condition_model, dtype, mix_trans,
+                           x_wav=mix_wav)
 
     # ---------------------------------------------------------------- sampler
     def _draws(self, noise, generator, shape, count, device):
@@ -421,7 +487,8 @@ class Universe(nn.Module):
                 keep_rms, ensemble, ensemble_stat, warm_start, compute_dtype,
                 generator, noise)
 
-    def aux_to_wav(self, y_aux: torch.Tensor) -> torch.Tensor:
+    def aux_to_wav(self, y_aux: torch.Tensor, dtype: Optional[torch.dtype] = None
+                   ) -> torch.Tensor:
         return y_aux
 
     def _enhance(self, mix, n_steps, epsilon, target, fake_score_snr,

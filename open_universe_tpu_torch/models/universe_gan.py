@@ -23,8 +23,16 @@ target, scaled by the step's warm-up weight (``GANTrainStep``, from
 
 Reference quirk kept: the signal-decoupling layer is applied and
 EMA-shadowed but never optimised (``optimized_param_keys``), so a
-checkpoint's EMA shadow of it equals its raw value.  Not ported: bf16
-training (``training.compute_dtype``) and ``remat`` (ROADMAP queue 1).
+checkpoint's EMA shadow of it equals its raw value.
+
+With ``training.compute_dtype: bf16`` the generator networks and the
+signal-decoupling layer run on bfloat16 casts of their parameters
+(``Universe`` says how), and so do the discriminators, for their own loss
+and for the adversarial terms; every output (the generator's, the
+discriminators' logits and feature maps) is upcast before the losses,
+which are float32.  The clean target of the mel and the adversarial losses
+stays float32 until the discriminators cast it.  ``training.remat``
+recomputes the conditioner's and the score's forwards in the backward.
 """
 from __future__ import annotations
 
@@ -40,7 +48,15 @@ from .discriminators import (
     feature_loss,
     generator_loss,
 )
-from .universe import Universe
+from ..utils.params import at_least_f32
+from .universe import Universe, cast_call, maybe_remat
+
+
+def _f32(tree):
+    """``at_least_f32`` over nested lists of tensors."""
+    if isinstance(tree, (list, tuple)):
+        return [_f32(t) for t in tree]
+    return at_least_f32(tree)
 
 
 class UniverseGAN(Universe):
@@ -61,7 +77,6 @@ class UniverseGAN(Universe):
         """The discriminators, in place of the plain UNIVERSE's MDN losses
         (called by ``Universe.__init__`` when the model is built with its
         ``losses`` node)."""
-        self._refuse_unported()
         lk = self.losses_kwargs
         self.loss_aux = lk.get("aux_loss_module")
         self.loss_mpd = MultiPeriodDiscriminator(lk.get("multi_period_discriminator", {}))
@@ -86,10 +101,20 @@ class UniverseGAN(Universe):
     def loss_param_keys(self):
         return self.disc_param_keys()
 
-    def aux_to_wav(self, y_aux: torch.Tensor) -> torch.Tensor:
+    def aux_to_wav(self, y_aux: torch.Tensor, dtype: Optional[torch.dtype] = None
+                   ) -> torch.Tensor:
         if self.signal_decoupling_layer is not None:
-            return self.signal_decoupling_layer(y_aux)
+            return cast_call(self.signal_decoupling_layer, dtype, y_aux)
         return y_aux
+
+    def _discriminate(self, name: str, target_original, y_est):
+        """(real scores, generated scores, real feature maps, generated
+        feature maps) of discriminator ``name``, in ``training.compute_dtype``
+        (parameters and both signals cast), upcast."""
+        dt = self._train_dtype()
+        if dt is not None:
+            target_original, y_est = target_original.to(dt), y_est.to(dt)
+        return _f32(cast_call(getattr(self, name), dt, target_original, y_est))
 
     # --------------------------------------------------------------- GAN parts
     def generator_forward(self, mix, target, target_original,
@@ -97,39 +122,53 @@ class UniverseGAN(Universe):
                           u: Optional[torch.Tensor] = None,
                           z: Optional[torch.Tensor] = None,
                           pr_cum=None, bins=None,
-                          dice: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+                          dice: Optional[torch.Tensor] = None,
+                          rows: Optional[slice] = None) -> Dict[str, Any]:
         """One forward of the generator networks on normalised (B, T, 1)
         inputs, with autograd's graph kept for the generator's backward.
         sigma comes from uniform draws ``u`` (and, in ``adaptive`` time
         sampling with validation's histogram ``pr_cum``/``bins``, the bin
         draws ``dice``) and the score's noise is ``z`` (shaped like the
-        transformed target): all drawn from ``generator`` unless given."""
+        transformed target): all drawn from ``generator`` unless given.
+        ``rows``: a data-parallel rank's rows of the batch
+        (``parallel/mesh.py``): the draws are the whole batch's, the outputs
+        these rows'.  The outputs are float32 (or wider)."""
         sigma, time = self.sample_sigma(mix.shape[0], self.train_kwargs["time_sampling"],
                                         generator=generator, u=u, device=mix.device,
                                         pr_cum=pr_cum, bins=bins, dice=dice)
+        dt = self._train_dtype()
+        if dt is not None:
+            mix, target = mix.to(dt), target.to(dt)
         mix_t, target_t = self.transform(mix), self.transform(target)
         if z is None:
             z = torch.randn(target_t.shape, generator=generator, device=mix.device)
         z = torch.as_tensor(z, dtype=target_t.dtype, device=mix.device)
-        x_t = target_t + sigma[:, None, None] * z
+        if rows is not None:
+            mix_t, target_t, target_original, sigma, time, z = (
+                t[rows] for t in (mix_t, target_t, target_original, sigma, time, z))
+        # sigma follows the networks' dtype through x_t and the score network
+        sigma_c = sigma.to(target_t.dtype)
+        x_t = target_t + sigma_c[:, None, None] * z
+        remat = bool(self.train_kwargs.get("remat", False))
 
         # the JAX package's conditioner takes the transformed mix as its
         # waveform input too
-        cond, y_est, _ = self._cond_train(mix_t, mix_t)
+        cond, y_est, _ = self._cond_train(mix_t, mix_t, dt, remat)
         if self.detach_cond:
             cond = [c.detach() for c in cond]
-        score = self.score(x_t, sigma, cond)
-        y_est = self.transform(self.aux_to_wav(y_est), inv=True)
+        score = maybe_remat(remat, self.score, x_t, sigma_c, cond, dtype=dt)
+        y_est = self.transform(self.aux_to_wav(y_est, dt), inv=True)
         mel = self.condition_model.input_mel.compute_mel_spec
-        return {"y_est": y_est, "score": score, "sigma": sigma, "z": z,
-                "mel_y_est": mel(y_est), "mel_target": mel(target_original),
-                "time": time}
+        return {"y_est": at_least_f32(y_est), "score": at_least_f32(score),
+                "sigma": sigma, "z": at_least_f32(z),
+                "mel_y_est": at_least_f32(mel(y_est)),
+                "mel_target": at_least_f32(mel(target_original)), "time": time}
 
     def discriminator_losses(self, y_est, target_original):
         """LSGAN loss of both discriminators; the caller detaches y_est."""
-        y_df_r, y_df_g, _, _ = self.loss_mpd(target_original, y_est)
+        y_df_r, y_df_g, _, _ = self._discriminate("loss_mpd", target_original, y_est)
         loss_f, _, _ = discriminator_loss(y_df_r, y_df_g)
-        y_ds_r, y_ds_g, _, _ = self.loss_mrd(target_original, y_est)
+        y_ds_r, y_ds_g, _, _ = self._discriminate("loss_mrd", target_original, y_est)
         loss_s, _, _ = discriminator_loss(y_ds_r, y_ds_g)
         loss = loss_f + loss_s
         return loss, {"train/loss_disc": loss, "train/loss_mpd": loss_f,
@@ -156,10 +195,12 @@ class UniverseGAN(Universe):
             loss_aux = zero
         if adversarial:
             y_est = gen_out["y_est"]
-            y_df_r, y_df_g, fmap_f_r, fmap_f_g = self.loss_mpd(target_original, y_est)
+            y_df_r, y_df_g, fmap_f_r, fmap_f_g = self._discriminate(
+                "loss_mpd", target_original, y_est)
             loss_fm_f = feature_loss(fmap_f_r, fmap_f_g)
             loss_gen_f, _ = generator_loss(y_df_g)
-            y_ds_r, y_ds_g, fmap_s_r, fmap_s_g = self.loss_mrd(target_original, y_est)
+            y_ds_r, y_ds_g, fmap_s_r, fmap_s_g = self._discriminate(
+                "loss_mrd", target_original, y_est)
             loss_fm_s = feature_loss(fmap_s_r, fmap_s_g)
             loss_gen_s, _ = generator_loss(y_ds_g)
         else:

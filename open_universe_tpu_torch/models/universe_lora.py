@@ -137,12 +137,15 @@ class UniverseLoRA(EnhancementBaseModel):
     def forward(self, mix: torch.Tensor, n_steps: Optional[int] = None,
                 epsilon: Optional[float] = None, keep_rms: bool = False,
                 generator: Optional[torch.Generator] = None,
-                noise: Optional[Sequence[Any]] = None) -> torch.Tensor:
+                noise: Optional[Sequence[Any]] = None,
+                rows: Optional[slice] = None) -> torch.Tensor:
         """The unrolled sampler with gradient gating (reference
         lora.py:300-397) on a (T,), (B, T) or (B, T, C) mix; the output has
         the mix's shape.  ``noise``: n_steps standard-normal draws shaped
         like the transformed padded mix (the initial one, then one per loop
-        step), else drawn from ``generator``."""
+        step), else drawn from ``generator``.  ``rows``: a data-parallel
+        rank's rows (``parallel/mesh.py``): the draws are made for the whole
+        batch, the output is these rows'."""
         if epsilon is None:
             epsilon = self.diff_kwargs.get("epsilon", 1.3)
         if n_steps is None:
@@ -150,7 +153,7 @@ class UniverseLoRA(EnhancementBaseModel):
         ndim = mix.dim()
         mix = as_batch(mix)
         if self.use_partial_diffusion:
-            x = self._partial_diffusion(mix, n_steps, epsilon, generator, noise)
+            x = self._partial_diffusion(mix, n_steps, epsilon, generator, noise, rows)
             return like_input(x, ndim)
 
         m = self.model
@@ -168,8 +171,12 @@ class UniverseLoRA(EnhancementBaseModel):
         sigma = m.get_std_dev(time).to(mix_t.dtype)
         bsz = mix_t.shape[0]
 
-        cond, _, _ = m.condition_model(mix_t, x_wav=mix_n)
         draws = m._draws(noise, generator, mix_t.shape, n_steps, mix.device)
+        if rows is not None:
+            mix_rms, mix_n, mix_t = mix_rms[rows], mix_n[rows], mix_t[rows]
+            draws = [d[rows] for d in draws]
+            bsz = mix_t.shape[0]
+        cond, _, _ = m.condition_model(mix_t, x_wav=mix_n)
         x = draws[0] * sigma[0]
         for n in range(n_steps - 1):
             # gradients in the last n_steps_backprop score evaluations only
@@ -186,7 +193,8 @@ class UniverseLoRA(EnhancementBaseModel):
             x = x * mix_rms / torch.clamp(rms(x), min=1e-5)
         return like_input(clip_protect(x), ndim)
 
-    def _partial_diffusion(self, mix, n_steps, epsilon, generator=None, noise=None):
+    def _partial_diffusion(self, mix, n_steps, epsilon, generator=None, noise=None,
+                           rows=None):
         """Each sample starts at its own time t_final ~ U(0, 1) (reference
         lora.py:231-298); the mix is not padded and the result is the
         transform's inverse, as in the JAX package."""
@@ -202,10 +210,15 @@ class UniverseLoRA(EnhancementBaseModel):
         eta = 1.0 - gamma**epsilon
         beta = torch.sqrt(1.0 - gamma ** (2.0 * (epsilon - 1.0)))
 
+        draws = m._draws(noise, generator, mix_t.shape, n_steps, mix.device)
+        if rows is not None:
+            mix_n, mix_t, delta_t, eta, beta = (
+                t[rows] for t in (mix_n, mix_t, delta_t, eta, beta))
+            draws = [d[rows] for d in draws]
+            bsz = mix_t.shape[0]
         time = torch.ones(bsz, device=mix.device)
         sigma = m.get_std_dev(time)
         cond, _, _ = m.condition_model(mix_t, x_wav=mix_n)
-        draws = m._draws(noise, generator, mix_t.shape, n_steps, mix.device)
         x = draws[0] * sigma[:, None, None]
         for n in range(n_steps - 1):
             with torch.set_grad_enabled(grad_on and n >= n_steps - self.n_steps_backprop):
@@ -239,13 +252,17 @@ class UniverseLoRA(EnhancementBaseModel):
 
     def training_losses(self, mix: torch.Tensor, target: torch.Tensor,
                         generator: Optional[torch.Generator] = None,
-                        draws: Optional[Dict[str, Any]] = None):
+                        draws: Optional[Dict[str, Any]] = None,
+                        rows: Optional[slice] = None):
         """(loss, metrics) of a raw (B, T, 1) batch: normalise, the sampler
         on mix[:, :, 0] with ``diffusion.n_steps`` (``draws["noise"]`` its
-        draws, else ``generator``), the losses against target[:, :, 0]."""
+        draws, else ``generator``), the losses against target[:, :, 0].
+        ``rows`` as ``forward`` takes it."""
         (mix, target), *_ = self.normalize_batch((mix, target))
         enh = self.forward(mix[:, :, 0], n_steps=self.diff_kwargs.get("n_steps", 8),
-                           generator=generator, noise=(draws or {}).get("noise"))
+                           generator=generator, noise=(draws or {}).get("noise"), rows=rows)
+        if rows is not None:
+            target = target[rows]
         loss, losses = self.compute_losses(enh, target[:, :, 0])
         return loss, {"train/main_loss": loss, **{f"train/{k}": v for k, v in losses.items()}}
 

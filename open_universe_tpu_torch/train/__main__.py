@@ -2,6 +2,8 @@
 
     python -m open_universe_tpu_torch.train experiment=universepp_vb_16k \\
         [key=value ...] [device=cpu]
+    torchrun --nproc_per_node <N> -m open_universe_tpu_torch.train \\
+        experiment=universe_original_vb_16k [key=value ...] [device=cpu]
 
 Composes ``config/`` (defaults, the experiment overlay, dotlist overrides,
 ``${...}`` interpolations), seeds numpy, ``random`` and torch, builds the
@@ -16,6 +18,17 @@ checkpoint ``ckpt_path`` names).  The run directory is
 ``<path.exp_root>/<experiment>/<datetime>[_overrides]``; its checkpoints
 load with ``inference/model_loader.py::load_model``.  It runs on CUDA unless
 ``device=cpu`` (or another device) is given, and raises without a GPU.
+
+Under ``torchrun`` every process joins the job's process group
+(``parallel/mesh.py``: NCCL, one card per process, ``cuda:<LOCAL_RANK>``;
+gloo with ``device=cpu``) and trains data-parallel on its rows of the
+configured batch, which is the global batch; ``trainer.mesh_dp``, when
+set, must equal the number of processes, and ``trainer.mesh_tp`` > 1
+raises.  Rank 0 names the run directory, validates, tests and writes the
+checkpoints.  ``model.training.compute_dtype=bf16``,
+``model.training.remat=true`` and
+``model.optimizer.accumulate_grad_batches=<k>`` set mixed precision,
+recomputation and gradient accumulation.
 """
 import argparse
 import datetime
@@ -49,11 +62,12 @@ def main(argv=None):
 
     from ..configs.registry import instantiate, instantiate_trainable
     from ..configs.resolve import compose
-    from ..utils.device import resolve_device
+    from ..parallel import mesh
     from .trainer import Trainer
 
-    device = resolve_device(device)
     cfg = compose(args.config_dir, overrides)
+    tcfg = cfg.get("trainer", {})
+    device = mesh.init_from_env(device, tcfg.get("mesh_dp"), tcfg.get("mesh_tp", 1))
     experiment = cfg.get("_choices_", {}).get("experiment", "default")
     seed = cfg.get("seed", 0)
     np.random.seed(seed)
@@ -68,10 +82,10 @@ def main(argv=None):
     run_name = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
     if ov_tag:
         run_name += "_" + ov_tag
+    run_name = mesh.broadcast_object(run_name)
     run_dir = Path(cfg.get("path", {}).get("exp_root", "exp")) / experiment / run_name
     log.info("run dir: %s, device %s", run_dir, device)
 
-    tcfg = cfg.get("trainer", {})
     trainer = Trainer(
         model, dm, run_dir,
         max_steps=tcfg.get("max_steps", 600000),
@@ -79,14 +93,16 @@ def main(argv=None):
         checkpoint_every=tcfg.get("checkpoint_every"),
         log_every=tcfg.get("log_every", 25),
         max_val_batches=tcfg.get("max_val_batches"),
-        seed=seed, device=device,
+        seed=seed, device=device, profile_steps=tcfg.get("profile_steps"),
         config={k: v for k, v in cfg.items() if not k.startswith("_")})
     if cfg.get("train", True):
         trainer.fit(resume_from=cfg.get("ckpt_path"))
     elif cfg.get("ckpt_path"):
         trainer.restore(cfg["ckpt_path"])
     if cfg.get("test", False):
-        trainer.test()
+        if mesh.is_main():
+            trainer.test()
+        mesh.barrier()
     return trainer
 
 

@@ -50,10 +50,18 @@ every checkpoint with the newest validation's ``validation.main_loss`` and
 (``fit(resume_from=...)``) resumes from a ``.ckpt`` or a run directory's
 ``last.json``; the resumed run restarts its loader and its generator from
 the seed, as the JAX trainer does, and AutoClip's history (the plain
-UNIVERSE's ``grad_clipper: {p: ...}``) empty.
+UNIVERSE's ``grad_clipper: {p: ...}``) empty.  With
+``optimizer.accumulate_grad_batches`` > 1 the checkpoint also holds each
+optimizer's gradient accumulator (``grad_accumulators``: its running mean
+and count), so a run resumed in the middle of an accumulation continues it.
 
-Not ported (ROADMAP queue 1): bf16 training, gradient accumulation and
-multi-device training.
+Data parallelism (``parallel/mesh.py``, under ``torchrun``): every rank
+draws the same weights and takes every step on its rows of the same global
+batch; only rank 0 logs, validates, tests and writes checkpoints and the
+json files beside them, then sends the adaptive histogram to the others,
+which wait at a barrier.  On resume every rank loads the checkpoint.
+``profile_steps=(start, stop)`` traces steps start..stop-1 with
+``torch.profiler`` into ``<run>/profile`` (JAX's ``jax.profiler`` trace).
 """
 from __future__ import annotations
 
@@ -77,6 +85,7 @@ from ..models.universe import Universe
 from ..models.universe_gan import UniverseGAN
 from ..models.universe_lora import UniverseLoRA
 from ..nn.layers import init_weights
+from ..parallel import mesh
 from ..utils.convert import fold_weight_norm
 from ..utils.device import resolve_device
 from .ema import EMA
@@ -93,7 +102,6 @@ def make_gan_step(model: UniverseGAN, max_steps: int) -> GANTrainStep:
     generator (weight decay by name) and for the discriminators, each with
     its schedule, and EMA from the current weights."""
     opt = model.opt_kwargs or {}
-    _refuse_accumulation(opt)
     gen_cfg, disc_cfg = opt.get("generator", {}), opt.get("discriminator", {})
     sch = model.schedule_kwargs or {}
     freeze = model.disc_freeze_step
@@ -120,12 +128,8 @@ def make_gan_step(model: UniverseGAN, max_steps: int) -> GANTrainStep:
         build_schedule(sch.get("discriminator"), disc_cfg.get("lr", 2e-4), max_steps,
                        gan_role="discriminator", freeze_step=freeze),
         ema=EMA(model, ema_decay) if ema_decay > 0.0 else None,
-        grad_clip_vals=opt.get("grad_clip_vals", {}))
-
-
-def _refuse_accumulation(opt: dict) -> None:
-    if opt.get("accumulate_grad_batches", 1) not in (None, 1):
-        raise NotImplementedError("gradient accumulation is not ported (ROADMAP queue 1)")
+        grad_clip_vals=opt.get("grad_clip_vals", {}),
+        accumulate=opt.get("accumulate_grad_batches") or 1)
 
 
 def make_train_step(model, max_steps: int) -> TrainStep:
@@ -137,7 +141,6 @@ def make_train_step(model, max_steps: int) -> TrainStep:
     ``requires_grad`` here).  ``universe_lora.yaml`` names torch's Adam;
     like the JAX trainer this builds AdamW from its lr and weight_decay."""
     opt = dict(model.opt_kwargs or {})
-    _refuse_accumulation(opt)
     trainable = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     optimizer = adamw(trainable, betas=opt.get("betas", (0.8, 0.99)),
                       weight_decay=opt.get("weight_decay", 0.0),
@@ -146,7 +149,8 @@ def make_train_step(model, max_steps: int) -> TrainStep:
     return TrainStep(model, optimizer,
                      build_schedule(model.schedule_kwargs, opt.get("lr", 2e-4), max_steps),
                      ema=EMA(model, ema_decay) if ema_decay > 0.0 else None,
-                     clipper=make_clipper(model.grad_clip_kwargs))
+                     clipper=make_clipper(model.grad_clip_kwargs),
+                     accumulate=opt.get("accumulate_grad_batches") or 1)
 
 
 def make_step(model, max_steps: int):
@@ -159,11 +163,12 @@ def make_step(model, max_steps: int):
 
 
 def optimizers(step_fn):
-    """(optimizer, name of its update counter) of a step, in checkpoint
-    order."""
+    """(optimizer, name of its update counter, its gradient accumulator) of
+    a step, in checkpoint order."""
     if isinstance(step_fn, GANTrainStep):
-        return [(step_fn.opt_gen, "gen_updates"), (step_fn.opt_disc, "disc_updates")]
-    return [(step_fn.opt, "updates")]
+        return [(step_fn.opt_gen, "gen_updates", step_fn.gen_accum),
+                (step_fn.opt_disc, "disc_updates", step_fn.disc_accum)]
+    return [(step_fn.opt, "updates", step_fn.accum)]
 
 
 class Trainer:
@@ -172,7 +177,8 @@ class Trainer:
                  seed: int = 0, log_every: int = 25,
                  checkpoint_every: Optional[int] = None,
                  max_val_batches: Optional[int] = None,
-                 config: Optional[dict] = None, device=None):
+                 config: Optional[dict] = None, device=None,
+                 profile_steps: Optional[tuple] = None):
         if not (isinstance(model, EnhancementBaseModel)
                 or isinstance(model, Universe) and model.built_for_training):
             raise NotImplementedError(
@@ -189,13 +195,15 @@ class Trainer:
         self.max_val_batches = max_val_batches
         self.config = config
         self.device = resolve_device(device)
+        self.profile_steps = profile_steps
         self._last_val: Dict[str, float] = {}
         self._first_val_done = False
         self.val_timing: Dict[str, float] = {}
-        (self.output_dir / "checkpoints").mkdir(parents=True, exist_ok=True)
-        if config is not None:
-            with open(self.output_dir / "checkpoints" / "config.yaml", "w") as f:
-                yaml.safe_dump(config, f)
+        if mesh.is_main():
+            (self.output_dir / "checkpoints").mkdir(parents=True, exist_ok=True)
+            if config is not None:
+                with open(self.output_dir / "checkpoints" / "config.yaml", "w") as f:
+                    yaml.safe_dump(config, f)
         self._setup()
 
     def _setup(self):
@@ -224,6 +232,8 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _log(self, metrics: Dict[str, Any], step: int):
+        if not mesh.is_main():
+            return
         row = {"step": step, **{k: float(v) for k, v in metrics.items()}}
         with open(self.output_dir / "metrics.jsonl", "a") as f:
             f.write(json.dumps(row) + "\n")
@@ -251,8 +261,9 @@ class Trainer:
             torch.cuda.reset_peak_memory_stats(self.device)
         metrics: Dict[str, Any] = {}
         t0 = time.perf_counter()
-        log.info("starting training at step %d / %d on %s", step, self.max_steps,
-                 self.device)
+        log.info("starting training at step %d / %d on %s (rank %d of %d)", step,
+                 self.max_steps, self.device, mesh.rank(), mesh.world_size())
+        prof = None
         while step < self.max_steps:
             for batch in loader:
                 if step >= self.max_steps:
@@ -263,8 +274,13 @@ class Trainer:
                             if self._adaptive_mode else None)
                 kw = ({"disc_frozen": step < self.model.disc_freeze_step}
                       if isinstance(self.step_fn, GANTrainStep) else {})
+                if self.profile_steps and step == self.profile_steps[0]:
+                    prof = self._start_profile()
                 metrics = self.step_fn(b, generator=gen, adaptive=adaptive, **kw)
                 step += 1
+                if prof is not None and step == self.profile_steps[1]:
+                    self._stop_profile(prof)
+                    prof = None
                 if step % self.log_every == 0 or step == self.max_steps:
                     metrics = {k: float(v) for k, v in metrics.items()}
                     if cuda:
@@ -277,15 +293,44 @@ class Trainer:
                     self._log(metrics, step)
                 if step % self.val_check_interval == 0:
                     t_val = time.perf_counter()
-                    self._last_val = self.validate(step)
-                    self._log({**self._last_val, **self.val_timing}, step)
+                    if mesh.is_main():
+                        self._last_val = self.validate(step)
+                        self._log({**self._last_val, **self.val_timing}, step)
+                    self._share_validation()
                     t0 += time.perf_counter() - t_val  # not a step's time
                 if step % self.checkpoint_every == 0 and step != self.max_steps:
                     t_save = time.perf_counter()
                     self.save(step)
                     t0 += time.perf_counter() - t_save  # not a step's time either
+        if prof is not None:
+            self._stop_profile(prof)
         self.save(step)
         return {k: float(v) for k, v in metrics.items()}
+
+    def _share_validation(self):
+        """Rank 0's validation results (the adaptive histogram, the main
+        loss of the next checkpoints) on every rank; the others wait."""
+        pr_cum, bins, last = mesh.broadcast_object(
+            (self.pr_cum.cpu(), self.val_bins.cpu(), self._last_val))
+        self.pr_cum, self.val_bins = pr_cum.to(self.device), bins.to(self.device)
+        self._last_val = last
+
+    def _start_profile(self):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof):
+        self._sync()
+        prof.stop()
+        out = self.output_dir / "profile"
+        out.mkdir(parents=True, exist_ok=True)
+        path = out / f"trace_rank{mesh.rank()}.json"
+        prof.export_chrome_trace(str(path))
+        log.info("profiler trace written to %s", path)
 
     # ------------------------------------------------------------------
     def _eval_model(self) -> Universe:
@@ -535,28 +580,36 @@ class Trainer:
     # ------------------------------------------------------------------
     def save(self, step: int) -> Path:
         """Write ``checkpoints/step_<step>.ckpt`` in the reference's layout,
-        then last.json, index.json and best.json."""
+        then last.json, index.json and best.json (rank 0; the other ranks
+        wait)."""
+        path = self.output_dir / "checkpoints" / f"step_{step:08d}.ckpt"
+        if mesh.is_main():
+            self._write_checkpoint(step, path)
+        mesh.barrier()
+        return path
+
+    def _write_checkpoint(self, step: int, path: Path) -> None:
         step_fn = self.step_fn
         sd = {self._ckpt_key(k): v.detach().cpu() for k, v in self.model.state_dict().items()}
         opts = optimizers(step_fn)
         ckpt: Dict[str, Any] = {
             "state_dict": sd, "global_step": step,
-            "optimizer_states": [o.state_dict() for o, _ in opts],
+            "optimizer_states": [o.state_dict() for o, _, _ in opts],
             "lr_schedulers": [{"updates": getattr(step_fn, count),
                                "_last_lr": [g["lr"] for g in o.param_groups]}
-                              for o, count in opts]}
+                              for o, count, _ in opts]}
+        if any(acc.k > 1 for _, _, acc in opts):
+            ckpt["grad_accumulators"] = [acc.state_dict() for _, _, acc in opts]
         if self.ema is not None:
             names = ordered_param_names(sd, self.model.model_param_keys())
             ckpt["ema"] = {"shadow_params": [self.ema.shadow[normalize_key(n)].cpu()
                                              for n in names],
                            "decay": self.ema.decay,
                            "num_updates": self.ema.num_updates}
-        path = self.output_dir / "checkpoints" / f"step_{step:08d}.ckpt"
         torch.save(ckpt, path)
         self._commit_last_json(step, path,
                                self._last_val.get(self.model.val_kwargs.get("main_loss")))
         log.info("saved checkpoint %s", path)
-        return path
 
     def _ckpt_key(self, name: str) -> str:
         """A state_dict name as the reference's checkpoint writes it: a LoRA
@@ -594,10 +647,10 @@ class Trainer:
 
     def restore(self, path) -> int:
         """Load the model (loss modules included), the optimizers' states,
-        their update counts, the EMA shadow and the step from a
-        checkpoint ``save`` wrote: the ``.ckpt`` ``path``, or the one a
-        checkpoints dir's (or a run dir's) ``last.json`` points at; returns
-        the step."""
+        their update counts and gradient accumulators, the EMA shadow and
+        the step from a checkpoint ``save`` wrote: the ``.ckpt`` ``path``,
+        or the one a checkpoints dir's (or a run dir's) ``last.json`` points
+        at; returns the step."""
         p = Path(path)
         if p.is_dir() and not (p / "last.json").exists() \
                 and (p / "checkpoints" / "last.json").exists():
@@ -613,10 +666,13 @@ class Trainer:
         if len(ckpt["optimizer_states"]) != len(opts):
             raise ValueError(f"{p} holds {len(ckpt['optimizer_states'])} optimizer "
                              f"states; this model's step has {len(opts)}")
-        for (opt, count), state, sch in zip(opts, ckpt["optimizer_states"],
-                                            ckpt["lr_schedulers"]):
+        accs = ckpt.get("grad_accumulators") or [None] * len(opts)
+        for (opt, count, acc), state, sch, acc_state in zip(
+                opts, ckpt["optimizer_states"], ckpt["lr_schedulers"], accs):
             opt.load_state_dict(state)
             setattr(step_fn, count, int(sch["updates"]))
+            if acc_state is not None:
+                acc.load_state_dict(acc_state)
         if self.ema is not None:
             names = ordered_param_names(ckpt["state_dict"], self.model.model_param_keys())
             with torch.no_grad():

@@ -9,7 +9,12 @@ rest of ``enhance`` runs on the same networks in UNIVERSE++ (with the snake
 signal-decoupling layer): ensembles (mean, median of an even and an odd
 ensemble, signal_median, with keep_rms), warm start, ``use_aux_signal`` and
 the fake-score probe (``target``).  Bound: 2e-5, the sampler-golden bound of
-PARITY.md.
+PARITY.md.  A narrow 24 kHz UNIVERSE++ (the rate factors [2, 3, 5, 8] of
+``config/model/universepp_24k.yaml``) is held to the same bound, and a bf16
+``enhance`` (networks in bfloat16, the sampler in float32) to JAX's bf16
+``enhance`` within ``BF16_TOL`` of max|ref|: both sides round the networks'
+activations to bfloat16 (8 bits of mantissa) in different orders, over 3
+sampler steps.
 """
 import subprocess
 import sys
@@ -188,6 +193,68 @@ def test_enhance_arguments_match_jax(gan_pair, record_property, case):
     assert out.shape == (B, T) and torch.isfinite(out).all()
     record_property("max_abs_diff", float(np.abs(out.numpy() - ref).max()))
     np.testing.assert_allclose(out.numpy(), ref, atol=TOL, rtol=0)
+
+
+_SCORE_24K = dict(_SCORE, rate_factors=[2, 3, 5, 8], n_channels=4)
+_COND_24K = dict(_COND, rate_factors=[2, 3, 5, 8], n_channels=4)
+T_24K = 960  # 4 periods of the total downsampling, 240; padded to 1200
+
+
+def _gan(jax_side, score, cond, fs=16000):
+    kw = dict(_universe_kwargs(True), fs=fs)
+    if jax_side:
+        return JaxUniverseGAN(
+            score_model=JaxScore(**score), condition_model=JaxCond(**cond),
+            losses={"weights": {"score": 1.0}, "use_signal_decoupling": True,
+                    "signal_decoupling_act": "snake"}, **kw)
+    return UniverseGAN(score_model=ScoreNetwork(**score),
+                       condition_model=ConditionerNetwork(**cond),
+                       use_signal_decoupling=True, signal_decoupling_act="snake", **kw)
+
+
+def test_enhance_24k_matches_jax(record_property):
+    """A narrow 24 kHz UNIVERSE++ (folded, snake signal decoupling), batch
+    2, 3 steps, on JAX's draws: within the sampler-golden 2e-5."""
+    jm = _gan(True, _SCORE_24K, _COND_24K, fs=24000)
+    params = jax.tree_util.tree_map(
+        np.asarray, jax.jit(lambda p: jax_fold(jm, p))(_jax_params(jm, seed=5)))
+    pm = _gan(False, _SCORE_24K, _COND_24K, fs=24000)
+    fold_weight_norm(pm)
+    assert from_jax_params(pm, params) == []
+    assert pm.tot_ds == 240
+    mix = np.random.default_rng(6).standard_normal((B, T_24K)).astype(np.float32) * 0.1
+    key = jax.random.key(7)
+    ref = np.asarray(jax.jit(lambda p, m: jm.enhance(
+        p, m, key=key, n_steps=N_STEPS, packed=False))(params, jnp.asarray(mix)))
+    out = pm.enhance(mix, n_steps=N_STEPS,
+                     noise=_jax_draws(key, (B, T_24K + 240, 1), N_STEPS))
+    assert out.shape == (B, T_24K) and torch.isfinite(out).all()
+    record_property("max_abs_diff", float(np.abs(out.numpy() - ref).max()))
+    np.testing.assert_allclose(out.numpy(), ref, atol=TOL, rtol=0)
+
+
+BF16_TOL = 5e-3
+
+
+def test_enhance_bf16_matches_jax_bf16(gan_pair, record_property):
+    """``enhance(compute_dtype=bfloat16)`` on the folded UNIVERSE++ pair
+    against JAX's bf16 ``enhance``, same draws: within BF16_TOL of max|ref|;
+    it differs from float32 (the networks ran in bf16)."""
+    jm, params, pm = gan_pair
+    mix = np.random.default_rng(8).standard_normal((B, T)).astype(np.float32) * 0.1
+    key = jax.random.key(9)
+    ref = np.asarray(jax.jit(lambda p, m: jm.enhance(
+        p, m, key=key, n_steps=N_STEPS, packed=False, compute_dtype=jnp.bfloat16))(
+        params, jnp.asarray(mix)))
+    noise = _jax_draws(key, (B, T_PADDED, 1), N_STEPS)
+    out = pm.enhance(mix, n_steps=N_STEPS, noise=noise, compute_dtype=torch.bfloat16)
+    f32 = pm.enhance(mix, n_steps=N_STEPS, noise=noise)
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    err = float(np.abs(out.numpy() - ref).max() / np.abs(ref).max())
+    record_property("max_abs_diff_over_max_ref", err)
+    record_property("bf16_vs_f32_over_max", float((out - f32).abs().max() / f32.abs().max()))
+    assert err <= BF16_TOL
+    assert not torch.equal(out, f32)
 
 
 def test_even_median_averages_the_middle_members():

@@ -720,9 +720,11 @@ def test_train_entry_point_writes_a_checkpoint_load_model_reads(tmp_path, rng):
 def test_port_imports_neither_jax_nor_the_jax_package():
     """No module of the port and not chip_smoke.py imports jax or
     open_universe_tpu; the plain UNIVERSE's modules (the MDN loss, the
-    transforms, the score-only step) and LoRA fine-tuning's (the losses, the
-    adapters, the enhancement family, UniverseLoRA) are among them, and
-    importing them loads neither."""
+    transforms, the score-only step), LoRA fine-tuning's (the losses, the
+    adapters, the enhancement family, UniverseLoRA) and training at scale's
+    (data parallelism, the parity and resample CLIs, the parameter
+    utilities, the reference-path aliases) are among them, and importing
+    them loads neither."""
     import re
 
     pat = re.compile(r"^\s*(from|import)\s+(jax|open_universe_tpu)(\s|\.|$)", re.M)
@@ -730,7 +732,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(files) > 30
     new = ["models/mdn.py", "models/transforms.py", "train/steps.py", "ops/stft.py",
            "losses/__init__.py", "losses/multires_stft.py", "losses/combine.py",
-           "nn/lora.py", "lora.py", "models/enhancement.py", "models/universe_lora.py"]
+           "nn/lora.py", "lora.py", "models/enhancement.py", "models/universe_lora.py",
+           "parallel/mesh.py", "utils/params.py", "bin/parity.py", "bin/resample.py",
+           "prepare/resample.py", "networks/universe.py", "datasets.py",
+           "inference_utils.py", "layers.py"]
     assert {ROOT / "open_universe_tpu_torch" / n for n in new} <= set(files)
     for f in files:
         assert not pat.search(f.read_text()), f

@@ -181,9 +181,27 @@ Phases, each of which raises (exit code != 0) on failure:
    8a's checkpoint over 4 synthetic 2 s pairs (the report, 94 launches) and
    ``bin.resample`` (its own process) on phase 7's tree.
 
+13. The phoneme losses and LPS on the port's wav2vec2 (``nn/wav2vec2.py``;
+   no hand kernel: cuDNN, cuBLAS, ``scaled_dot_product_attention``).  (a)
+   ``LV60_ESPEAK`` (the published widths of wav2vec2-lv-60-espeak-cv-ft,
+   315.8M parameters) with seeded random weights, written as a Hugging Face
+   directory and read by ``load_pretrained``: logits of 2 x 2 s on the card
+   against the CPU (TF32 off <= 1e-4, cuDNN TF32 on <= 5e-2, of max(1,
+   max|CPU|)); ``PhonemeCTCLoss`` forward and backward at batch 4 x 2 s
+   (median of 5 after 2, CUDA events), the forward alone, peak memory.
+   (b) Phase 11a's LoRA run with the recipe's ``PhonemeCTCLoss`` on (13a's
+   directory): losses finite, train/ and val/phonemeloss logged, 0
+   launches in the steps and the validation, the checkpoint's keys phase
+   11a's; step times and peak memory beside phase 11a's; one traced step
+   with the loss and one without it.  (c) 11b with a tiny random
+   wav2vec2: the narrow step on the card against the CPU, 11b's bounds.
+   (d) ``Metrics(["lps"])`` and ``EvalMetrics(lps=True)`` on 13a's
+   directory as the default id's snapshot in a Hugging Face cache, over
+   two enhanced clips (finite values; the strings' lengths logged).
+
 The last two lines are a JSON object with one entry per kernel (per-enhance
 sums; each shape's numbers are on the log lines of phases 3c, 4 and 4b; the
-CLI's launches per run of phase 7; phase 10's, 11's and 12's launches per path) and
+CLI's launches per run of phase 7; phase 10's to 13's launches per path) and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
 and prints no result.
 """
@@ -2320,11 +2338,13 @@ def phase_lora_training(base_ckpt: str):
     return result, os.path.join(run_dir, "checkpoints", f"step_{LORA_STEPS:08d}.ckpt")
 
 
-def phase_lora_step_vs_cpu():
+def phase_lora_step_vs_cpu(phoneme=("model.losses.phonemeloss=null",), name="lora-vs-cpu"):
     """11b: one LoRA fine-tuning step (the experiment's config: rank 16,
     alpha 4, 8 sampler steps with gradients in the last 2, the frozen
-    discriminators' loss) on a narrow UNIVERSE++ (NARROW_OVERRIDES) on the
-    card and on the CPU, same weights, adapters and sampler draws, TF32 off.
+    discriminators' loss; ``phoneme``: the phoneme loss's overrides, off in
+    11b, a tiny random wav2vec2 in 13c) on a narrow UNIVERSE++
+    (NARROW_OVERRIDES) on the card and on the CPU, same weights, adapters
+    and sampler draws, TF32 off.
     Bounds: losses relative <= 1e-4 (the sampler's last step cancels a
     sigma_max-scale start down to the signal, which amplifies float32's
     rounding); every trainable tensor's gradient <= 1e-2 of its largest
@@ -2343,7 +2363,7 @@ def phase_lora_step_vs_cpu():
 
     cfg = compose(config_dir(), ["experiment=universepp_vb_16k", *NARROW_OVERRIDES])
     base = fold_weight_norm(init_weights(instantiate_trainable(cfg["model"]), seed=3))
-    lcfg = compose(config_dir(), [f"experiment={LORA}", "model.losses.phonemeloss=null"])
+    lcfg = compose(config_dir(), [f"experiment={LORA}", *phoneme])
     kw = {k: v for k, v in lcfg["model"].items() if k not in ("_target_", "model")}
     rng = np.random.default_rng(6)
     clean = (0.05 * rng.standard_normal((2, NARROW_T, 1))).astype(np.float32)
@@ -2384,7 +2404,7 @@ def phase_lora_step_vs_cpu():
             failed.append(f"update of {n}")
     n_el = sum(g.numel() for _, g in cpu.values())
     worst = sorted(grad_rel.items(), key=lambda kv: -kv[1])[:6]
-    log(f"[lora-vs-cpu] narrow step ({NARROW_OVERRIDES}, batch 2 x {NARROW_T}, the "
+    log(f"[{name}] narrow step ({NARROW_OVERRIDES}, batch 2 x {NARROW_T}, the "
         f"experiment's LoRA config), TF32 off: losses max rel {max(loss_rel.values()):.3e} "
         f"({max(loss_rel, key=loss_rel.get)}); {len(cpu)} trainable tensors, gradient "
         f"max|d| / max|g_cpu| median {float(np.median(list(grad_rel.values()))):.3e}, worst "
@@ -2392,7 +2412,8 @@ def phase_lora_step_vs_cpu():
     if not max(loss_rel.values()) <= 1e-4 or small > 1e-2 * n_el or failed:
         raise AssertionError(f"LoRA card vs CPU step beyond its bounds: losses {loss_rel}, "
                              f"small {small}, {failed[:8]}")
-    return {"loss_rel": max(loss_rel.values()), "trainable_tensors": len(cpu),
+    return {"loss_rel": max(loss_rel.values()), "losses_rel": loss_rel,
+            "trainable_tensors": len(cpu),
             "grad_rel_median": float(np.median(list(grad_rel.values()))),
             "grad_rel_worst": worst, "small_gradient_elements": small, "elements": n_el}
 
@@ -2996,6 +3017,326 @@ def phase_parity_resample(ckpt: str):
             "resampled": {k: list(v) for k, v in got.items()}}
 
 
+# ---------------------------------------------------------------- phase 13
+# 13a: the published wav2vec2-lv-60-espeak-cv-ft widths (LV60_ESPEAK) with
+# seeded random weights, written as a Hugging Face checkpoint directory; the
+# loss timed at PHONEME_BATCH x 2 s; 13b: phase 11a's LoRA run with the
+# phoneme loss on; 13c: 11b with a tiny random wav2vec2 (PHONEME_TINY, the
+# CPU tests' config); 13d: lps on 13a's directory
+PHONEME_BATCH, PHONEME_RUNS, PHONEME_WARMUP = 4, 5, 2
+PHONEME_TINY = dict(hidden_size=32, num_hidden_layers=2, num_attention_heads=2,
+                    intermediate_size=64, conv_dim=(16, 16, 16), conv_stride=(5, 2, 2),
+                    conv_kernel=(10, 3, 3), vocab_size=40, do_stable_layer_norm=True,
+                    feat_extract_norm="layer", pad_token_id=0)
+# card vs CPU logits, over max(1, max|CPU|): f32 throughout (TF32 off), and
+# PyTorch's defaults (cuDNN's convs in TF32: a 10-bit mantissa)
+PHONEME_LOGIT_TOL = {"tf32_off": 1e-4, "tf32_on": 5e-2}
+
+
+def espeak_vocab(n: int) -> dict:
+    """A vocab.json of n ids: the four special tokens, then p4 .. p<n-1>."""
+    special = ["<pad>", "<s>", "</s>", "<unk>"]
+    return {t: i for i, t in enumerate(special + [f"p{i}" for i in range(len(special), n)])}
+
+
+def write_wav2vec2(directory: str, cfg, seed: int) -> str:
+    """A seeded random Wav2Vec2ForCTC of cfg as a Hugging Face checkpoint
+    directory (config.json, pytorch_model.bin, vocab.json)."""
+    import dataclasses
+
+    from open_universe_tpu_torch.nn.wav2vec2 import Wav2Vec2ForCTC
+
+    torch.manual_seed(seed)
+    with torch.device(DEVICE):
+        model = Wav2Vec2ForCTC(cfg)
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, "config.json"), "w") as f:
+        json.dump({**dataclasses.asdict(cfg), "model_type": "wav2vec2"}, f)
+    with open(os.path.join(directory, "vocab.json"), "w") as f:
+        json.dump(espeak_vocab(cfg.vocab_size), f)
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+               os.path.join(directory, "pytorch_model.bin"))
+    del model
+    torch.cuda.empty_cache()
+    return directory
+
+
+def w2v_flops(cfg, n: int) -> float:
+    """FLOPs (2 per multiply-add) of one wav2vec2 forward on n samples: the
+    conv stack, the projection, the positional conv, the encoder layers
+    (q/k/v/out, the attention's two products, the FFN) and the head."""
+    t, cin, flops = n, 1, 0.0
+    for c, k, st in zip(cfg.conv_dim, cfg.conv_kernel, cfg.conv_stride):
+        t = (t - k) // st + 1
+        flops += 2 * k * cin * c * t
+        cin = c
+    d, f = cfg.hidden_size, cfg.intermediate_size
+    flops += 2 * cin * d * t
+    flops += 2 * cfg.num_conv_pos_embeddings * (d // cfg.num_conv_pos_embedding_groups) * d * t
+    flops += cfg.num_hidden_layers * (8 * d * d * t + 4 * t * t * d + 4 * d * f * t)
+    return flops + 2 * d * cfg.vocab_size * t
+
+
+def phoneme_pairs(b: int, seed: int):
+    """b (clean, noisy) rows of 2 s at 16 kHz: write_pairs' tones in noise."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(CLIP_S * FS)) / FS
+    clean = np.stack([0.1 * np.sin(2 * np.pi * rng.uniform(100, 300) * t)
+                      * (1 + 0.5 * np.sin(2 * np.pi * 3 * t)) for _ in range(b)])
+    clean += 0.01 * rng.standard_normal(clean.shape)
+    noisy = clean + 0.05 * rng.standard_normal(clean.shape)
+    return clean.astype(np.float32), noisy.astype(np.float32)
+
+
+def phase_phoneme_predictor():
+    """13a: LV60_ESPEAK (~315M parameters) with seeded random weights,
+    written as a Hugging Face directory and read back by ``load_pretrained``;
+    the predictor's logits of a 2 x 2 s batch on the card against the CPU
+    (PHONEME_LOGIT_TOL); ``PhonemeCTCLoss`` forward and backward at batch
+    PHONEME_BATCH x 2 s under PyTorch's TF32 defaults, timed with CUDA
+    events (the median of PHONEME_RUNS after PHONEME_WARMUP), and the
+    predictor's forward alone; the peak memory of the loss.  Also writes the
+    tiny random wav2vec2 of 13c."""
+    import copy
+
+    from open_universe_tpu_torch.losses.phoneme_loss import PhonemeCTCLoss, PhonemePredictor
+    from open_universe_tpu_torch.nn.wav2vec2 import LV60_ESPEAK, Wav2Vec2Config, load_pretrained
+
+    tmp = tempfile.mkdtemp()
+    t0 = time.perf_counter()
+    root = write_wav2vec2(os.path.join(tmp, "lv60"), LV60_ESPEAK, seed=131)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_model = load_pretrained(root)
+    load_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in cpu_model.parameters())
+    card_model = copy.deepcopy(cpu_model).to(DEVICE)
+    clean, noisy = phoneme_pairs(PHONEME_BATCH, seed=132)
+    x2 = torch.from_numpy(noisy[:2])
+    with torch.no_grad():
+        ref = PhonemePredictor(model=cpu_model)(x2)
+        diffs = {}
+        for tag, on in (("tf32_off", False), ("tf32_on", True)):
+            tf32_flags(on)
+            try:
+                got = PhonemePredictor(model=card_model)(x2.to(DEVICE)).cpu()
+            finally:
+                tf32_flags(False)
+            diffs[tag] = (got - ref).abs().max().item() / max(1.0, ref.abs().max().item())
+    del cpu_model
+    log(f"[phoneme] LV60_ESPEAK, {n_params / 1e6:.1f}M parameters, seeded random: written in "
+        f"{write_s:.1f} s, load_pretrained {load_s:.1f} s; logits (2 x 2 s, {tuple(ref.shape)}, "
+        f"max|CPU| {ref.abs().max().item():.3f}) card vs CPU, max|d| / max(1, max|CPU|): "
+        + ", ".join(f"{k} {v:.3e} (bound {PHONEME_LOGIT_TOL[k]:.0e})" for k, v in diffs.items()))
+    if not all(diffs[k] <= PHONEME_LOGIT_TOL[k] for k in diffs):
+        raise AssertionError(f"wav2vec2 logits card vs CPU: {diffs}")
+
+    loss = PhonemeCTCLoss(model=card_model)
+    pred = loss.phoneme_predictor
+    est, tgt = torch.from_numpy(noisy).to(DEVICE), torch.from_numpy(clean).to(DEVICE)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+
+    def timed(fn):
+        ms = []
+        for _ in range(PHONEME_WARMUP + PHONEME_RUNS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn()
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        return float(np.median(ms[PHONEME_WARMUP:])), ms, out
+
+    def loss_step():
+        e = est.clone().requires_grad_(True)
+        v = loss(e, tgt)
+        v.backward()
+        return v.item(), e.grad.abs().max().item()
+
+    tf32_flags(True)
+    try:
+        loss_ms, loss_all, (value, gmax) = timed(loss_step)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        with torch.no_grad():
+            fwd_ms, _, _ = timed(lambda: pred(est))
+    finally:
+        tf32_flags(False)
+    flops = w2v_flops(LV60_ESPEAK, est.shape[1]) * PHONEME_BATCH
+    result = {"parameters": n_params, "dir": root, "tiny_dir": None, "write_s": write_s,
+              "load_s": load_s, "logits_rel": diffs, "batch": PHONEME_BATCH, "clip_s": CLIP_S,
+              "loss_ms": loss_ms, "loss_ms_runs": loss_all, "forward_ms": fwd_ms,
+              "forward_gflop": flops / 1e9, "forward_tflops": flops / fwd_ms / 1e9,
+              "forward_bound_ms": flops / CUDA_CORE_F32_FLOPS * 1e3,
+              "loss": value, "grad_max": gmax, "weights_gib": base, "peak_gib": peak}
+    log(f"[phoneme] {card_line()}: PhonemeCTCLoss forward + backward at batch "
+        f"{PHONEME_BATCH} x 2 s (cuDNN TF32 on, matmul TF32 off), median of {PHONEME_RUNS} "
+        f"after {PHONEME_WARMUP}: {loss_ms:.2f} ms (runs {[round(m, 2) for m in loss_all]}); "
+        f"predictor forward {fwd_ms:.2f} ms = {flops / 1e9:.1f} GFLOP at "
+        f"{result['forward_tflops']:.1f} TFLOP/s (f32 CUDA-core bound "
+        f"{result['forward_bound_ms']:.2f} ms); loss {value:.4f}, max|grad| {gmax:.3e}; "
+        f"memory: weights {base:.2f} GiB, peak {peak:.2f} GiB")
+    if not (np.isfinite(value) and np.isfinite(gmax) and gmax > 0):
+        raise AssertionError(f"PhonemeCTCLoss at full width: loss {value}, max|grad| {gmax}")
+    del loss, pred, card_model, est, tgt
+    torch.cuda.empty_cache()
+    result["tiny_dir"] = write_wav2vec2(os.path.join(tmp, "tiny"),
+                                        Wav2Vec2Config(**PHONEME_TINY), seed=133)
+    return result
+
+
+def phase_phoneme_lora(base_ckpt: str, w2v_dir: str, plain: dict, plain_ckpt: str):
+    """13b: phase 11a's LoRA run (the entry point with
+    experiment=universepp_lora_finetune on phase 8a's checkpoint, batch 4 x
+    2 s, LORA_STEPS steps, a validation at the last, f32, PyTorch's TF32
+    defaults) with the recipe's PhonemeCTCLoss on, on 13a's wav2vec2
+    (``+model.losses.phonemeloss.kwargs.checkpoint``).  Checks: every loss
+    finite, train/ and val/phonemeloss logged; 0 fused-kernel launches in
+    the steps and the validation; the checkpoint's keys equal phase 11a's
+    (no wav2vec2 tensor).  Step times and peak memory beside phase 11a's
+    (``plain``)."""
+    import glob
+
+    from open_universe_tpu_torch.train.__main__ import main as train_main
+
+    tmp = tempfile.mkdtemp()
+    data, exp = os.path.join(tmp, "data"), os.path.join(tmp, "exp")
+    write_pairs(data, LORA_PAIRS, TRAIN_PAIR_S, seed=12)
+    write_pairs(data, LORA_VAL_PAIRS, np.linspace(1.3, 2.5, LORA_VAL_PAIRS), seed=13,
+                split="val")
+    args = [f"experiment={LORA}", f"device={DEVICE}", f"model.model={base_ckpt}",
+            f"+model.losses.phonemeloss.kwargs.checkpoint={w2v_dir}",
+            f"datamodule.datasets.vb-train-16k.audio_path={data}",
+            f"trainer.max_steps={LORA_STEPS}", f"trainer.val_check_interval={LORA_STEPS}",
+            f"trainer.checkpoint_every={LORA_CKPT_EVERY}", "trainer.log_every=1",
+            f"path.exp_root={exp}", "train=false", *LORA_OVERRIDES]
+    torch.cuda.reset_peak_memory_stats()
+    tf32_flags(True)
+    try:
+        with CountedEval() as counted:
+            trainer = train_main(args)
+            t0 = time.perf_counter()
+            trainer.fit()
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        tf32_flags(False)
+    (run_dir,) = glob.glob(os.path.join(exp, LORA, "*"))
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    train_rows = [r for r in rows if "train/main_loss" in r]
+    keys = LORA_LOSSES + ("train/phonemeloss", "grad/norm")
+    for r in train_rows:
+        log(f"[phoneme lora] step {r['step']}: " + ", ".join(
+            f"{k} {r[k]:.5f}" for k in keys[:2] + keys[-2:])
+            + f", {r['perf/step_time_s']:.3f} s, peak "
+            f"{r.get('perf/peak_mem_gib', float('nan')):.2f} GiB")
+    val = [r for r in rows if "val/phonemeloss" in r]
+    if len(train_rows) != LORA_STEPS or not all(np.isfinite(r[k]) for r in train_rows
+                                                 for k in keys) or len(val) != 1 or \
+            not np.isfinite(val[0]["val/phonemeloss"]):
+        raise AssertionError(f"LoRA with the phoneme loss: {train_rows}, validation {val}")
+    if [c["kind"] for c in counted.calls] != ["validate"]:
+        raise AssertionError(f"validations run: {[c['kind'] for c in counted.calls]}")
+    launched = {"steps": counted.steps, "validation": sum(counted.calls[0]["launches"].values())}
+    last = os.path.join(run_dir, "checkpoints", f"step_{LORA_STEPS:08d}.ckpt")
+    got, want = (set(torch.load(c, map_location="cpu", weights_only=False)["state_dict"])
+                 for c in (last, plain_ckpt))
+    times = [r["perf/step_time_s"] for r in train_rows]
+    result = {"steps": LORA_STEPS, "first_step_s": times[0],
+              "median_step_s": float(np.median(times[1:])), "peak_mem_gib": peak, "fit_s": fit_s,
+              "launches": launched, "phonemeloss": [r["train/phonemeloss"] for r in train_rows],
+              "val_phonemeloss": val[0]["val/phonemeloss"],
+              "validation_timing": counted.calls[0]["timing"], "state_keys": len(got),
+              "without": {k: plain[k] for k in ("first_step_s", "median_step_s", "peak_mem_gib")}}
+    log(f"[phoneme lora] {card_line()}: with PhonemeCTCLoss (lv-60 widths, random weights): "
+        f"first step {times[0]:.3f} s, median after it {result['median_step_s']:.3f} s, peak "
+        f"{peak:.2f} GiB; phase 11a without it: {plain['first_step_s']:.3f} s, "
+        f"{plain['median_step_s']:.3f} s, {plain['peak_mem_gib']:.2f} GiB; val/phonemeloss "
+        f"{val[0]['val/phonemeloss']:.4f}, validation {counted.calls[0]['timing']}; fused-kernel "
+        f"launches {launched}; checkpoint keys {len(got)}, phase 11a's {len(want)}, differ "
+        f"{sorted(got ^ want)[:5]}")
+    if any(launched.values()) or got != want:
+        raise AssertionError(f"LoRA with the phoneme loss: launches {launched}, keys not in "
+                             f"both {sorted(got ^ want)[:8]}")
+    # one traced step with the phoneme loss and one without it (the same
+    # model and batch, the loss taken out of losses_func), each after an
+    # untraced one: device busy time and idle share
+    clean, noisy = phoneme_pairs(trainer.config["datamodule"]["train"]["dl_opts"]["batch_size"],
+                                 seed=135)
+    batch = {"clean": torch.from_numpy(clean[..., None]).to(DEVICE),
+             "noisy": torch.from_numpy(noisy[..., None]).to(DEVICE)}
+    gen = torch.Generator(device=DEVICE).manual_seed(136)
+    funcs = trainer.model.losses_func
+    phoneme_loss = funcs["phonemeloss"]
+    result["profile"] = {}
+    tf32_flags(True)
+    try:
+        for tag in ("with", "without"):
+            if tag == "without":
+                del funcs["phonemeloss"]
+            trainer.step_fn(batch, generator=gen)
+            result["profile"][tag] = device_profile(
+                f"[phoneme lora] step {tag} the phoneme loss",
+                lambda: trainer.step_fn(batch, generator=gen))
+    finally:
+        tf32_flags(False)
+        funcs["phonemeloss"] = phoneme_loss
+    del trainer
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_lps(w2v_dir: str, ckpt: str):
+    """13d: ``Metrics(["lps"])`` and ``EvalMetrics(lps=True)`` resolve the
+    default checkpoint id to 13a's directory as a snapshot of a Hugging Face
+    cache (``$HF_HUB_CACHE``) and score two clips enhanced by phase 8a's
+    checkpoint against their clean references on the card.  Random weights:
+    the check is that the path runs (finite values); the phoneme strings'
+    lengths and the values are logged."""
+    from open_universe_tpu_torch import metrics as pmetrics
+    from open_universe_tpu_torch.inference.model_loader import load_model
+    from open_universe_tpu_torch.nn.wav2vec2 import DEFAULT_CHECKPOINT
+
+    tmp = tempfile.mkdtemp()
+    snaps = os.path.join(tmp, "models--" + DEFAULT_CHECKPOINT.replace("/", "--"), "snapshots")
+    os.makedirs(snaps)
+    os.symlink(w2v_dir, os.path.join(snaps, "random"))
+    clean, noisy = phoneme_pairs(2, seed=134)
+    model = load_model(ckpt, device=DEVICE)
+    enh = model.enhance(torch.from_numpy(noisy).to(DEVICE)).cpu().numpy()
+    del model
+    old = os.environ.get("HF_HUB_CACHE")
+    os.environ["HF_HUB_CACHE"] = tmp
+    try:
+        t0 = time.perf_counter()
+        metric = pmetrics.Metrics(["lps"], device=DEVICE)
+        rows = metric(FS, enh, clean)
+        pred = metric._lps.phoneme_predictor
+        lengths = [(len(pred(e)), len(pred(c))) for e, c in zip(enh, clean)]
+        evaluated = pmetrics.EvalMetrics(lps=True, dnsmos=False, device=DEVICE)(
+            enh[:, None], clean[:, None])
+        wall = time.perf_counter() - t0
+    finally:
+        if old is None:
+            os.environ.pop("HF_HUB_CACHE")
+        else:
+            os.environ["HF_HUB_CACHE"] = old
+    values = [r.get("lps", float("nan")) for r in rows]
+    log(f"[lps] {card_line()}: Metrics(['lps']) on 2 enhanced 2 s clips (lv-60 widths, random "
+        f"weights, predictor on {pred.device}): {values}, phoneme strings (enhanced, clean) "
+        f"{lengths} characters; EvalMetrics(lps=True): {evaluated.get('lps')} (mean of "
+        f"Metrics' {float(np.mean(values)):.6f}); {wall:.1f} s")
+    if not (np.isfinite(values).all() and np.isfinite(evaluated.get("lps", np.nan))):
+        raise AssertionError(f"lps: Metrics {rows}, EvalMetrics {evaluated}")
+    del metric, pred
+    torch.cuda.empty_cache()
+    return {"metrics": values, "eval_metrics": evaluated["lps"], "string_lengths": lengths,
+            "wall_s": wall}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3073,6 +3414,18 @@ def main() -> int:
     lap("12c data parallelism")
     scale["clis"] = phase_parity_resample(ckpt)
     lap("12d parity and resample CLIs")
+    phoneme = phase_phoneme_predictor()
+    lap("13a wav2vec2 predictor and loss")
+    phoneme["lora"] = phase_phoneme_lora(ckpt, phoneme["dir"], lora, lora_ckpt)
+    lap("13b LoRA with the phoneme loss")
+    phoneme["card_vs_cpu"] = phase_lora_step_vs_cpu(
+        phoneme=[f"+model.losses.phonemeloss.kwargs.checkpoint={phoneme['tiny_dir']}"],
+        name="phoneme-vs-cpu")
+    if "train/phonemeloss" not in phoneme["card_vs_cpu"]["losses_rel"]:
+        raise AssertionError("13c: the narrow step logged no phoneme loss")
+    lap("13c phoneme LoRA step card vs cpu")
+    phoneme["lps"] = phase_lps(phoneme["dir"], ckpt)
+    lap("13d lps")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     def cli_entry(entry):
@@ -3156,6 +3509,10 @@ def main() -> int:
         # torchrun: its validation's launches by route, its checkpoint's
         # enhance), the parity and resample CLIs
         "scale": scale,
+        # phase 13: the phoneme loss and lps on the port's wav2vec2 (lv-60
+        # widths, random weights): the loss's time, LoRA with it (0
+        # launches: adapters attached), a narrow step vs the CPU, lps
+        "phoneme": phoneme,
     }, {
         "name": "fused_conv_chain_rows",
         "route": "cuda",
@@ -3202,6 +3559,8 @@ def main() -> int:
             "torchrun_checkpoint_enhance": scale["data_parallel"]["torchrun"][
                 "trained_checkpoint_enhance"]["launches"].get("fused_conv_chain_rows", 0),
             "parity_cli": scale["clis"]["parity_launches"].get("fused_conv_chain_rows", 0)},
+        # phase 13: LoRA with the phoneme loss (0 launches in steps and validation)
+        "phoneme_lora_launches": phoneme["lora"]["launches"],
     }]}
     for tag, sh in (("batch 128, 16 kHz", shapes), ("batch 128, 24 kHz", shapes_24k),
                     ("rows, batch 16", rows_shapes)):

@@ -157,6 +157,27 @@ def build_multi_loss(**kw):
     return MultiLoss({k: (v[0], instantiate(v[1])) for k, v in kw["losses"].items()})
 
 
+@register("losses.PhonemeCTCLoss")
+def build_phoneme_ctc_loss(**kw):
+    from ..losses.phoneme_loss import PhonemeCTCLoss
+
+    return PhonemeCTCLoss(**kw)
+
+
+@register("losses.PhonemeLoss")
+def build_phoneme_loss(**kw):
+    from ..losses.phoneme_loss import PhonemeLoss
+
+    return PhonemeLoss(**kw)
+
+
+@register("losses.PhonemeEmbeddingLoss")
+def build_phoneme_embedding_loss(**kw):
+    from ..losses.phoneme_loss import PhonemeEmbeddingLoss
+
+    return PhonemeEmbeddingLoss(**kw)
+
+
 @register("metrics.EvalMetrics")
 def build_eval_metrics(**kw):
     from ..metrics.eval import EvalMetrics

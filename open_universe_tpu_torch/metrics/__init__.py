@@ -4,14 +4,14 @@ JAX package's ``metrics/``, without jax).
 In-house implementations: LSD/si-LSD (torch), SI-SDR and CI-SDR, STOI/ESTOI,
 PESQ (P.862, numpy), loudness.  Optional-dependency wrappers: DNSMOS and
 PLCMOS (onnxruntime or the in-house ONNX executor, and the model files),
-WER (an optional whisper normaliser).  LPS needs a wav2vec2 download and is
-not ported: asking for it raises.
+WER (an optional whisper normaliser), LPS (the port's wav2vec2 CTC model and
+a local espeak checkpoint).
 """
 from .bss import sdr, si_sdr  # noqa: F401
 from .eval import EvalMetrics  # noqa: F401
 from .lsd import log_spectral_distance  # noqa: F401
 from .stoi import stoi  # noqa: F401
-from .wrapper import LPS_NOT_PORTED, Metrics  # noqa: F401
+from .wrapper import Metrics  # noqa: F401
 
 
 def __getattr__(name):
@@ -29,7 +29,9 @@ def __getattr__(name):
 
         return PLCMOSEstimator
     if name == "LevenshteinPhonemeSimilarity":
-        raise NotImplementedError(LPS_NOT_PORTED)
+        from .lps import LevenshteinPhonemeSimilarity
+
+        return LevenshteinPhonemeSimilarity
     if name == "wer":
         from .wer import wer
 

@@ -6,7 +6,8 @@ always (the external pesq package when installed, the in-house P.862
 otherwise — metrics/p862.py), so the reference's val/pesq
 checkpoint-selection signal (universe.py:706-720, model/default.yaml:73-74)
 is there without optional dependencies.  DNSMOS runs when its weights are
-found, otherwise it is skipped with a warning.  LPS is not ported.
+found, otherwise it is skipped with a warning.  LPS (``lps=True``) runs its
+wav2vec2 model on the card unless ``device`` names another.
 """
 from __future__ import annotations
 
@@ -18,14 +19,13 @@ import torch
 
 from ..data.audio import resample_audio
 from .lsd import log_spectral_distance
-from .wrapper import LPS_NOT_PORTED
 
 log = logging.getLogger(__name__)
 
 
 class EvalMetrics:
     def __init__(self, pesq_mode: str = "wb", lps: bool = False,
-                 audio_fs: int = 16000, dnsmos: bool = True):
+                 audio_fs: int = 16000, dnsmos: bool = True, device=None):
         self.mode = pesq_mode
         self.eval_fs = 16000
         self.audio_fs = audio_fs
@@ -43,8 +43,11 @@ class EvalMetrics:
             except Exception as e:
                 log.warning("DNSMOS unavailable (%s); val/dnsmos-* skipped", e)
 
+        self._lps = None
         if lps:
-            raise NotImplementedError(LPS_NOT_PORTED)
+            from .lps import LevenshteinPhonemeSimilarity
+
+            self._lps = LevenshteinPhonemeSimilarity(device=device)
 
     def __call__(self, est, ref) -> dict:
         """est/ref: (B, 1, T) or (B, T) tensors (LSD runs on their device)
@@ -80,6 +83,10 @@ class EvalMetrics:
                     self.eval_fs, ref[ii, 0], est[ii, 0], self.mode), ii)
                 if v is not None:
                     lists["pesq"].append(v)
+            if self._lps is not None:
+                v = _try("lps", lambda: self._lps(est[ii, 0], ref[ii, 0]), ii)
+                if v is not None:
+                    lists["lps"].append(v)
             if self._dnsmos is not None:
                 d = _try("dnsmos",
                          lambda: self._dnsmos(est[ii, 0], self.eval_fs), ii)

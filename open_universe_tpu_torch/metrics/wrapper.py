@@ -3,9 +3,10 @@ of the JAX package's ``metrics/wrapper.py``, its LSD in torch on the CPU).
 
 Same metric surface as the reference: pesq-wb, pesq-nb, stoi, stoi-ext, lsd,
 si-lsd, lps, dnsmos, plcmos, sdr, si-sdr.  Metrics with optional external
-dependencies (pesq lib, onnxruntime, the DNSMOS/PLCMOS weights) raise a
-clear error at construction if requested but unavailable.  ``lps`` needs a
-wav2vec2 download and is not ported: asking for it raises.
+dependencies (pesq lib, onnxruntime, the DNSMOS/PLCMOS weights, the
+wav2vec2 espeak checkpoint of ``lps``) raise a clear error at construction
+if requested but unavailable.  ``lps`` runs its wav2vec2 model on the card
+unless ``device`` names another.
 """
 from __future__ import annotations
 
@@ -22,9 +23,6 @@ from .lsd import log_spectral_distance
 from .stoi import stoi as _stoi
 
 log = logging.getLogger(__name__)
-
-LPS_NOT_PORTED = ("lps (Levenshtein phoneme similarity) needs the wav2vec2 "
-                  "espeak model, a download, and is not ported")
 
 _ALL_METRICS = ["pesq-wb", "pesq-nb", "stoi", "stoi-ext", "lsd", "si-lsd",
                 "lps", "dnsmos", "plcmos", "sdr", "si-sdr"]
@@ -76,7 +74,7 @@ class Metrics:
         skip = set(skip_list or ())
         return [m for m in metrics if not set(cls.metric_keys(m)) <= skip]
 
-    def __init__(self, metrics: Optional[Sequence[str]] = None):
+    def __init__(self, metrics: Optional[Sequence[str]] = None, device=None):
         if metrics is None:
             metrics = list(_ALL_METRICS)
         for met in metrics:
@@ -97,7 +95,9 @@ class Metrics:
 
             self._plcmos = PLCMOSEstimator()
         if "lps" in self.metrics:
-            raise NotImplementedError(LPS_NOT_PORTED)
+            from .lps import LevenshteinPhonemeSimilarity
+
+            self._lps = LevenshteinPhonemeSimilarity(device=device)
 
     # ---- individual metrics (each: (ref, deg, fs, cache) -> (dict, cache))
     def _pesq_base(self, ref, deg, fs, mode, cache):
@@ -141,6 +141,12 @@ class Metrics:
         if "lsd" in ret:
             ret["si-lsd"] = ret.pop("lsd")
         return ret, cache
+
+    def lps(self, ref, deg, fs, cache):
+        if ref is None:
+            return {}, cache
+        sig, cache = _cached_resample(fs, self._lps.sr, cache, ref=ref, deg=deg)
+        return {"lps": float(self._lps(sig["deg"], sig["ref"]))}, cache
 
     def dnsmos(self, ref, deg, fs, cache):
         sig, cache = _cached_resample(fs, 16000, cache, deg=deg)

@@ -9,9 +9,11 @@ Composes ``config/`` (defaults, the experiment overlay, dotlist overrides,
 ``${...}`` interpolations), seeds numpy, ``random`` and torch, builds the
 datamodule and the model (UNIVERSE++, the plain UNIVERSE of
 ``experiment=universe_original_vb_16k``, or the LoRA fine-tune of a
-checkpoint of ``experiment=universepp_lora_finetune model.model=<.ckpt>
-model.losses.phonemeloss=null``) with its losses, and fits (validating every
-``trainer.val_check_interval`` steps), resuming from ``ckpt_path=<.ckpt or
+checkpoint of ``experiment=universepp_lora_finetune model.model=<.ckpt>``,
+whose ``PhonemeCTCLoss`` reads the wav2vec2 espeak checkpoint from the local
+Hugging Face cache or ``+model.losses.phonemeloss.kwargs.checkpoint=<dir>``,
+or is dropped with ``model.losses.phonemeloss=null``) with its losses, and
+fits (validating every ``trainer.val_check_interval`` steps), resuming from ``ckpt_path=<.ckpt or
 run dir>`` when given; with ``test=true`` it then evaluates the test split
 (``test_results.json``, ``test_summary.json``; with ``train=false`` on the
 checkpoint ``ckpt_path`` names).  The run directory is

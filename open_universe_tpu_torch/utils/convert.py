@@ -23,7 +23,8 @@ layout), and a ``UniverseLoRA``'s ``{"model": ...}`` root, with the kept
 discriminators, onto its ``model``.
 
 ``fold_weight_norm`` replaces every (weight_g, weight_v) pair by its weight,
-as the inference loader does.
+as the inference loader does.  ``from_flax_wav2vec2`` carries a Flax
+``FlaxWav2Vec2ForCTC`` tree over to the port's ``nn/wav2vec2.py`` names.
 """
 from __future__ import annotations
 
@@ -111,3 +112,25 @@ def fold_weight_norm(model: nn.Module) -> nn.Module:
         if isinstance(m, _Weighted):
             m.fold_weight_norm()
     return model
+
+
+def from_flax_wav2vec2(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A ``FlaxWav2Vec2ForCTC`` param tree (nested dicts, numpy leaves) as a
+    state dict of the port's ``Wav2Vec2ForCTC`` (``transformers``' torch
+    names): conv ``kernel`` (K, Cin, Cout) -> ``weight`` (Cout, Cin, K);
+    Dense ``kernel`` (In, Out) -> ``weight`` (Out, In); LayerNorm ``scale``
+    -> ``weight``; the positional conv's ``weight_v`` (Cout, Cin/g, K) and
+    ``weight_g`` (1, 1, K) keep their layouts; ``masked_spec_embed`` (used
+    only for masking in training) is dropped."""
+    out = {}
+    for path, value in _leaves(params):
+        if path.endswith("masked_spec_embed"):
+            continue
+        v = np.array(value, np.float32)
+        mod, _, leaf = path.rpartition(".")
+        if leaf == "kernel":
+            leaf, v = "weight", (v.transpose(2, 1, 0) if v.ndim == 3 else v.T)
+        elif leaf == "scale":
+            leaf = "weight"
+        out[f"{mod}.{leaf}"] = torch.from_numpy(np.ascontiguousarray(v))
+    return out

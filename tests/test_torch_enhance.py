@@ -16,6 +16,7 @@ PARITY.md.  A narrow 24 kHz UNIVERSE++ (the rate factors [2, 3, 5, 8] of
 activations to bfloat16 (8 bits of mantissa) in different orders, over 3
 sampler steps.
 """
+import os
 import subprocess
 import sys
 import textwrap
@@ -387,7 +388,9 @@ def test_main_path_imports_no_jax():
         print("ok")
     """)
     root = Path(__file__).resolve().parents[1]
+    # one intra-op thread: the test workers share the cores
     proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                          env=dict(os.environ, OMP_NUM_THREADS="1"),
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert proc.stdout.strip().endswith("ok")

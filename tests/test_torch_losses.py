@@ -78,7 +78,7 @@ def test_multires_l1_matches_jax(windows, time_weight, scale_invariant, channel_
 def test_multiloss_and_registry_targets(rng):
     """MultiLoss (through the registry, as a config builds it) weighs its
     losses as the JAX package's does; both prefixes name the loss; the
-    phoneme losses raise, naming the wav2vec2 weights they need."""
+    phoneme losses resolve (on an injected wav2vec2 model)."""
     node = {"_target_": "open_universe.losses.MultiLoss", "losses": {
         "a": [0.3, {"_target_": LOSS_TARGET, "window_sz": [128]}],
         "b": [2.0, {"_target_": "open_universe.losses.MultiResL1SpecLoss",
@@ -94,10 +94,15 @@ def test_multiloss_and_registry_targets(rng):
         assert _rel(float(parts_p[k]), float(parts_j[k])) <= 1e-5
     import open_universe_tpu_torch.losses as plosses
 
-    with pytest.raises(NotImplementedError, match="wav2vec2"):
-        plosses.PhonemeCTCLoss  # noqa: B018
-    with pytest.raises(KeyError, match="PhonemeCTCLoss"):
-        pregistry.instantiate({"_target_": "open_universe.losses.PhonemeCTCLoss"})
+    from open_universe_tpu_torch.nn.wav2vec2 import Wav2Vec2Config, Wav2Vec2ForCTC
+
+    tiny = Wav2Vec2ForCTC(Wav2Vec2Config(
+        hidden_size=8, num_hidden_layers=1, num_attention_heads=2, intermediate_size=8,
+        conv_dim=(4,), conv_kernel=(10,), conv_stride=(5,), feat_extract_norm="layer",
+        do_stable_layer_norm=True, num_conv_pos_embeddings=4, num_conv_pos_embedding_groups=2,
+        vocab_size=6))
+    assert type(pregistry.instantiate({"_target_": "open_universe.losses.PhonemeCTCLoss",
+                                       "model": tiny})) is plosses.PhonemeCTCLoss
 
 
 # ------------------------------------------------------------ EnhancementBaseModel

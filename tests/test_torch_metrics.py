@@ -23,6 +23,7 @@ from open_universe_tpu import metrics as jmetrics  # noqa: E402
 from open_universe_tpu.bin import eval_metrics as jeval  # noqa: E402
 from open_universe_tpu.bin import make_table as jtable  # noqa: E402
 from open_universe_tpu.metrics import loudness as jloud  # noqa: E402
+from open_universe_tpu.metrics import lps as jlps  # noqa: E402
 from open_universe_tpu.metrics import onnx_exec as jonnx  # noqa: E402
 from open_universe_tpu.metrics import p862 as jp862  # noqa: E402
 from open_universe_tpu.metrics import wer as jwer  # noqa: E402
@@ -30,6 +31,7 @@ from open_universe_tpu_torch import metrics as pmetrics  # noqa: E402
 from open_universe_tpu_torch.bin import eval_metrics as peval  # noqa: E402
 from open_universe_tpu_torch.bin import make_table as ptable  # noqa: E402
 from open_universe_tpu_torch.metrics import loudness as ploud  # noqa: E402
+from open_universe_tpu_torch.metrics import lps as plps  # noqa: E402
 from open_universe_tpu_torch.metrics import onnx_exec as ponnx  # noqa: E402
 from open_universe_tpu_torch.metrics import p862 as pp862  # noqa: E402
 from open_universe_tpu_torch.metrics import wer as pwer  # noqa: E402
@@ -115,10 +117,25 @@ def test_wer_matches_jax():
             assert pwer.word_edit_distance(r, h, wc) == jwer.word_edit_distance(r, h, wc)
 
 
-def test_metrics_dispatcher_matches_jax(record_property):
+class _StubPhonemes:
+    """A stand-in for LPS's wav2vec2 predictor (both packages build it by
+    name): one phoneme per 0.1 s, by the chunk's energy."""
+
+    sr = FS
+
+    def __init__(self, checkpoint=None, device=None):
+        pass
+
+    def __call__(self, audio):
+        chunks = np.asarray(audio, np.float64)[: len(audio) // 1600 * 1600].reshape(-1, 1600)
+        return " ".join("a" if e > 1e-3 else "b" for e in np.mean(chunks ** 2, axis=1))
+
+
+def test_metrics_dispatcher_matches_jax(record_property, monkeypatch):
     """``Metrics`` (every metric without a download or weights) on one clip
     and on a batch of two: the same keys; LSD within 1e-5 relative, the rest
-    within 1e-9.  A metric that fails on a clip drops only itself."""
+    within 1e-9.  A metric that fails on a clip drops only itself.  ``lps``
+    on a stand-in predictor equals JAX's."""
     names = ["pesq-wb", "pesq-nb", "stoi", "stoi-ext", "lsd", "si-lsd", "sdr", "si-sdr"]
     clean, noisy = speech_like(1.2, 4)
     clean2, noisy2 = speech_like(1.0, 5)
@@ -142,17 +159,18 @@ def test_metrics_dispatcher_matches_jax(record_property):
     # skip-list by the keys a metric emits
     assert pmetrics.Metrics.remaining(["dnsmos", "sdr"], ["OVRL_raw", "SIG_raw", "BAK_raw",
                                                           "OVRL", "SIG", "BAK"]) == ["sdr"]
-    with pytest.raises(NotImplementedError, match="wav2vec2"):
-        pmetrics.Metrics(["lps"])
-    with pytest.raises(NotImplementedError, match="wav2vec2"):
-        pmetrics.LevenshteinPhonemeSimilarity
+    monkeypatch.setattr(plps, "PhonemePredictor", _StubPhonemes)
+    monkeypatch.setattr(jlps, "PhonemePredictor", _StubPhonemes)
+    assert pmetrics.LevenshteinPhonemeSimilarity is plps.LevenshteinPhonemeSimilarity
+    assert pmetrics.Metrics(["lps"])(FS, noisy, clean) == jmetrics.Metrics(["lps"])(FS, noisy,
+                                                                                   clean)
 
 
-def test_eval_metrics_class_matches_jax(caplog, record_property):
+def test_eval_metrics_class_matches_jax(caplog, record_property, monkeypatch):
     """``EvalMetrics`` (validation's metric suite): the same keys as the
     JAX package's; DNSMOS, whose weights are not in the repo, is skipped
     with a warning by both; LSD on torch tensors, where validation hands
-    them."""
+    them; ``lps=True`` on a stand-in predictor as JAX's."""
     import logging
 
     pairs = [speech_like(1.0, 6), speech_like(1.0, 7)]
@@ -168,8 +186,10 @@ def test_eval_metrics_class_matches_jax(caplog, record_property):
     assert abs(got["pesq"] - want["pesq"]) <= NUMPY_TOL
     record_property("lsd_rel", float(abs(got["lsd"] - want["lsd"]) / abs(want["lsd"])))
     assert pe(est[:, 0], ref[:, 0]) == got  # (B, T) arrays
-    with pytest.raises(NotImplementedError, match="wav2vec2"):
-        pmetrics.EvalMetrics(lps=True)
+    monkeypatch.setattr(plps, "PhonemePredictor", _StubPhonemes)
+    monkeypatch.setattr(jlps, "PhonemePredictor", _StubPhonemes)
+    assert pmetrics.EvalMetrics(lps=True, dnsmos=False)(est, ref)["lps"] == \
+        jmetrics.EvalMetrics(lps=True, dnsmos=False)(est, ref)["lps"]
     # 24 kHz audio is scored at 16 kHz, as the JAX package does
     got24 = pmetrics.EvalMetrics(audio_fs=24000, dnsmos=False)(est, ref)
     want24 = jmetrics.EvalMetrics(audio_fs=24000, dnsmos=False)(est, ref)

@@ -687,7 +687,8 @@ def test_train_entry_point_writes_a_checkpoint_load_model_reads(tmp_path, rng):
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'open_universe_tpu' or m.startswith('open_universe_tpu.')]\n"
         "assert not bad, bad\n")
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    # one intra-op thread: the test workers share the cores
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
@@ -718,16 +719,18 @@ def test_train_entry_point_writes_a_checkpoint_load_model_reads(tmp_path, rng):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """No module of the port and not chip_smoke.py imports jax or
-    open_universe_tpu; the plain UNIVERSE's modules (the MDN loss, the
-    transforms, the score-only step), LoRA fine-tuning's (the losses, the
-    adapters, the enhancement family, UniverseLoRA) and training at scale's
-    (data parallelism, the parity and resample CLIs, the parameter
-    utilities, the reference-path aliases) are among them, and importing
-    them loads neither."""
+    """No module of the port and not chip_smoke.py imports jax,
+    open_universe_tpu, flax, optax, transformers or safetensors; the plain
+    UNIVERSE's modules (the MDN loss, the transforms, the score-only step),
+    LoRA fine-tuning's (the losses, the adapters, the enhancement family,
+    UniverseLoRA), training at scale's (data parallelism, the parity and
+    resample CLIs, the parameter utilities, the reference-path aliases) and
+    the phoneme losses' (the wav2vec2 model, the losses, LPS) are among
+    them, and importing them loads none of these."""
     import re
 
-    pat = re.compile(r"^\s*(from|import)\s+(jax|open_universe_tpu)(\s|\.|$)", re.M)
+    banned = ("jax", "open_universe_tpu", "flax", "optax", "transformers", "safetensors")
+    pat = re.compile(r"^\s*(from|import)\s+(" + "|".join(banned) + r")(\s|\.|$)", re.M)
     files = sorted((ROOT / "open_universe_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 30
     new = ["models/mdn.py", "models/transforms.py", "train/steps.py", "ops/stft.py",
@@ -735,7 +738,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
            "nn/lora.py", "lora.py", "models/enhancement.py", "models/universe_lora.py",
            "parallel/mesh.py", "utils/params.py", "bin/parity.py", "bin/resample.py",
            "prepare/resample.py", "networks/universe.py", "datasets.py",
-           "inference_utils.py", "layers.py"]
+           "inference_utils.py", "layers.py", "nn/wav2vec2.py", "losses/phoneme_loss.py",
+           "metrics/lps.py"]
     assert {ROOT / "open_universe_tpu_torch" / n for n in new} <= set(files)
     for f in files:
         assert not pat.search(f.read_text()), f
@@ -743,7 +747,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         ".__init__", "") for n in new)
     code = (f"import {mods}\n"
             "import sys\n"
-            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'open_universe_tpu')]\n"
+            f"bad = [m for m in sys.modules if m.split('.')[0] in {banned!r}]\n"
             "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120,

@@ -9,7 +9,9 @@ called), and writes reference-layout checkpoints that ``load_model`` reads
 as a ``UniverseLoRA`` (and ``merge_lora`` folds), that the enhance CLI
 runs, that the JAX package's ``load_model`` (its ``convert_state_dict``, on
 a JAX ``UniverseLoRA`` built on the same base) reads into the port's
-weights exactly, and that a resumed run restores bit for bit.
+weights exactly, and that a resumed run restores bit for bit.  The recipe
+as shipped, with its ``PhonemeCTCLoss`` on a tiny random wav2vec2, trains
+and validates too.
 """
 import json
 
@@ -197,6 +199,36 @@ def test_resume_restores_bit_for_bit(runs):
     names = ordered_param_names(first["state_dict"], ["model"])
     _assert_same([tr.ema.shadow[normalize_key(n)] for n in names],
                  first["ema"]["shadow_params"])
+
+
+def test_fine_tuning_with_the_phoneme_loss_as_shipped(runs, tmp_path):
+    """The recipe as shipped, its ``PhonemeCTCLoss`` on: the entry point with
+    ``+model.losses.phonemeloss.kwargs.checkpoint=<dir>`` (a tiny random
+    wav2vec2 that ``transformers``' ``save_pretrained`` wrote) trains a step
+    and validates with ``train/phonemeloss`` and ``val/phonemeloss``
+    finite, and writes a checkpoint with the keys of a run without the
+    loss (no wav2vec2 tensor) that ``load_model`` reads."""
+    transformers = pytest.importorskip("transformers")
+    from test_torch_phoneme import TINY
+
+    torch.manual_seed(0)
+    transformers.Wav2Vec2ForCTC(transformers.Wav2Vec2Config(**TINY)).save_pretrained(
+        tmp_path / "w2v")
+    args = [a for a in runs["args"] if a != "model.losses.phonemeloss=null"]
+    train_main(args + [f"+model.losses.phonemeloss.kwargs.checkpoint={tmp_path / 'w2v'}",
+                       "trainer.max_steps=1", "trainer.val_check_interval=1",
+                       f"path.exp_root={tmp_path / 'exp'}"])
+    (run_dir,) = (tmp_path / "exp" / "universepp_lora_finetune").iterdir()
+    rows = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    assert all(np.isfinite(r[k]) for r in rows for k in r
+               if k.endswith(("phonemeloss", "main_loss")))
+    assert [k for r in rows for k in r if k.endswith("phonemeloss")] == \
+        ["train/phonemeloss", "val/phonemeloss"]
+    (ckpt,) = (run_dir / "checkpoints").glob("*.ckpt")
+    keys = set(torch.load(ckpt, map_location="cpu", weights_only=False)["state_dict"])
+    plain = runs["run_dir"] / "checkpoints" / "step_00000001.ckpt"
+    assert keys == set(torch.load(plain, map_location="cpu", weights_only=False)["state_dict"])
+    assert isinstance(load_model(ckpt, device="cpu"), UniverseLoRA)
 
 
 def test_24k_fine_tuning_composes_and_trains(tmp_path):

@@ -50,7 +50,8 @@ def test_entry_point_trains_and_its_checkpoint_loads_enhances_serves_and_resumes
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'open_universe_tpu' or m.startswith('open_universe_tpu.')]\n"
         "assert not bad, bad\n")
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    # one intra-op thread: the test workers share the cores
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]

@@ -199,9 +199,24 @@ Phases, each of which raises (exit code != 0) on failure:
    directory as the default id's snapshot in a Hugging Face cache, over
    two enhanced clips (finite values; the strings' lengths logged).
 
+14. Tensor parallelism (``parallel/tp.py``): two gloo processes on cuda:0
+   as a dp = 1, tp = 2 mesh and one process alone, each 4 UNIVERSE++ GAN
+   steps at full width (bf16 + remat, batch 16 x 2 s, fixed draws, TF32
+   off, cuDNN deterministic) through the trainer: the ranks agree bit for
+   bit, step 1's losses equal the one process's, the later losses within
+   1e-6 relative, gradients, parameters and EMA within 12c's bounds; each
+   rank holds about half of the parameters', gradients', moments' and
+   shadows' bytes; 0 launches in the steps; the tp checkpoint has the one
+   process's keys and shapes, and ``load_model`` + ``enhance`` on it as 8c
+   (94 launches, <= 1e-4 of the kernels off).  The sharded leaf count and
+   bytes, each process's peak memory and the step times (gloo through the
+   host: a correctness run) are logged.  Then the entry point as one NCCL
+   process under torchrun with ``trainer.mesh_tp=2`` exits non-zero
+   naming the mismatch.
+
 The last two lines are a JSON object with one entry per kernel (per-enhance
 sums; each shape's numbers are on the log lines of phases 3c, 4 and 4b; the
-CLI's launches per run of phase 7; phase 10's to 13's launches per path) and
+CLI's launches per run of phase 7; phase 10's to 14's launches per path) and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
 and prints no result.
 """
@@ -2751,20 +2766,16 @@ def ddp_worker(rank: int, init: str, out_dir: str, device: str) -> None:
         dist.destroy_process_group()
 
 
-def compare_ddp(name, ranks, one):
-    """The ranks against each other (bit for bit) and against one process:
-    losses <= 1e-6 relative; step 1's gradients <= 1e-5 of each tensor's
-    largest (1e-4 for one element) plus 1e-7 of the largest (1e-4 for the
-    GAN, whose mel and feature-matching L1s flip where the two runs round
-    apart); parameters <= 1e-5 of each tensor's largest, elements whose
+def compare_runs(tag, r0, one, rel, ema=False):
+    """A run of ranks (``r0``, rank 0's result) against one process: losses
+    <= 1e-6 relative; step 1's gradients <= ``rel`` of each tensor's
+    largest (1e-4 for one element) plus 1e-7 of the largest; parameters
+    (and EMA shadows) <= 1e-5 of each tensor's largest, elements whose
     gradient is below 1e-2 of their tensor's largest or 1e-7 aside (AdamW's
     +-lr), counted and held to 1 % of the elements."""
-    r0, r1 = ranks
-    bad = [n for n, p in r0["params"].items() if not torch.equal(p, r1["params"][n])]
     loss_rel = max(abs(a[k] - v) / max(abs(v), 1e-12)
                    for a, b in zip(r0["losses"], one["losses"]) for k, v in b.items())
     top = max(g.abs().max().item() for g in one["grads"].values())
-    rel = 1e-4 if name == "gan" else 1e-5
     grad_rel, failed, small, n_el = 0.0, [], 0, 0
     for n, g in one["grads"].items():
         scale = g.abs().max().item()
@@ -2772,21 +2783,35 @@ def compare_ddp(name, ranks, one):
         grad_rel = max(grad_rel, err / max(scale, 1e-30))
         if not err <= max(rel, 1e-4 if g.numel() == 1 else rel) * scale + 1e-7 * top:
             failed.append(f"gradient of {n}: {err / max(scale, 1e-30):.3e}")
-        p, want = r0["params"][n], one["params"][n]
-        diff = (p - want).abs()
-        over = diff > 1e-5 * want.abs().max()
+        pairs = [(r0["params"][n], one["params"][n])]
+        if ema and n in one["ema"]:
+            pairs.append((r0["ema"][n], one["ema"][n]))
         tiny = (g.abs() < 1e-2 * scale) | (g.abs() < 1e-7)
-        if (over & ~tiny).any():
-            failed.append(f"parameter {n}")
-        small += int(over.sum())
-        n_el += p.numel()
-    log(f"[ddp {name}] {DDP_WORLD} gloo ranks on cuda:0 vs one process, {DDP_STEPS} steps: "
-        f"ranks differ at {len(bad)} tensors; losses max rel {loss_rel:.3e}; step 1 gradients "
-        f"max|d| / max|g| {grad_rel:.3e}; small-gradient elements past 1e-5: {small} of {n_el}")
-    if bad or not loss_rel <= 1e-6 or failed or small > 1e-2 * n_el:
-        raise AssertionError(f"ddp {name}: ranks {bad[:3]}, losses {loss_rel}, {failed[:5]}, "
-                             f"small {small}")
+        for p, want in pairs:
+            over = (p - want).abs() > 1e-5 * want.abs().max()
+            if (over & ~tiny).any():
+                failed.append(f"parameter {n}")
+            small += int(over.sum())
+            n_el += p.numel()
+    log(f"[{tag}] losses max rel {loss_rel:.3e}; step 1 gradients max|d| / max|g| "
+        f"{grad_rel:.3e}; small-gradient elements past 1e-5: {small} of {n_el}")
+    if not loss_rel <= 1e-6 or failed or small > 1e-2 * n_el:
+        raise AssertionError(f"{tag}: losses {loss_rel}, {failed[:5]}, small {small}")
     return {"loss_rel": loss_rel, "grad_rel": grad_rel, "small_gradient_elements": small}
+
+
+def compare_ddp(name, ranks, one):
+    """The ranks against each other (bit for bit) and against one process
+    (``compare_runs``; gradients <= 1e-5 of each tensor's largest, 1e-4 for
+    the GAN, whose mel and feature-matching L1s flip where the two runs
+    round apart)."""
+    r0, r1 = ranks
+    bad = [n for n, p in r0["params"].items() if not torch.equal(p, r1["params"][n])]
+    log(f"[ddp {name}] {DDP_WORLD} gloo ranks on cuda:0 vs one process, {DDP_STEPS} steps: "
+        f"ranks differ at {len(bad)} tensors")
+    if bad:
+        raise AssertionError(f"ddp {name}: ranks {bad[:3]}")
+    return compare_runs(f"ddp {name}", r0, one, 1e-4 if name == "gan" else 1e-5)
 
 
 def torchrun(spec: dict, timeout: int = 600) -> dict:
@@ -3337,6 +3362,197 @@ def phase_lps(w2v_dir: str, ckpt: str):
             "wall_s": wall}
 
 
+# 14: tensor parallelism (two gloo ranks on cuda:0, dp = 1, tp = 2)
+TP_WORLD, TP_BATCH, TP_STEPS = 2, 16, 4
+TP_OVERRIDES = ["model.training.compute_dtype=bf16", "model.training.remat=true"]
+
+
+def tp_job(out_dir: str, device, width, batch_size) -> dict:
+    """TP_STEPS UNIVERSE++ GAN steps (``universepp_vb_16k`` at ``width``,
+    TRAIN_OVERRIDES by default, with TP_OVERRIDES) through a ``Trainer``
+    built as the entry point builds it (weights from seed 3; under a tp
+    mesh each rank keeps its slices of the parameters JAX's rule shards),
+    on ``batch_size`` x 2 s synthetic batches with fixed draws, then its
+    checkpoint: each step's metrics and time, step 1's gradients and the
+    parameters and EMA after the last step (whole, on the host), what this
+    process holds, its peak memory, the kernel launches of the steps and
+    the checkpoint's path."""
+    from open_universe_tpu_torch.configs.registry import instantiate_trainable
+    from open_universe_tpu_torch.configs.resolve import compose
+    from open_universe_tpu_torch.ops.kernels import conv_block
+    from open_universe_tpu_torch.parallel import tp
+    from open_universe_tpu_torch.train.trainer import Trainer, optimizers
+
+    cuda = device.type == "cuda"
+    cfg = compose(config_dir(), ["experiment=universepp_vb_16k", *width, *TP_OVERRIDES])
+    model = instantiate_trainable(cfg["model"])
+    tr = Trainer(model, None, out_dir, max_steps=cfg["trainer"]["max_steps"], seed=3,
+                 device=device, config={k: v for k, v in cfg.items() if not k.startswith("_")})
+    step, dims = tr.step_fn, tp.dims(model)
+
+    def whole(tensors):
+        return {n: v.detach().cpu() for n, v in tp.gather_state(tensors, dims).items()}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(device)
+
+    rng = np.random.default_rng(7)
+    t = int(CLIP_S * FS)
+    out = {"losses": [], "step_s": []}
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    conv_block.launches.clear()
+    for i in range(TP_STEPS):
+        batch = synthetic_batch(batch_size, t, seed=30 + i, device=device)
+        draws = {"u": rng.uniform(size=batch_size),
+                 "z": rng.standard_normal((batch_size, t, 1))}
+        draws = {k: torch.from_numpy(v.astype(np.float32)).to(device) for k, v in draws.items()}
+        t0 = time.perf_counter()
+        m = step(batch, draws=draws, disc_frozen=i < model.disc_freeze_step)
+        sync()
+        out["step_s"].append(time.perf_counter() - t0)
+        out["losses"].append({k: float(v) for k, v in m.items()})
+        if i == 0:
+            out["grads"] = whole({n: p.grad for n, p in model.named_parameters()
+                                  if p.grad is not None})
+    out["launches"] = sum(conv_block.launches.values())
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated(device) / 2**30 if cuda else 0.0
+    out["params"] = whole(dict(model.named_parameters()))
+    out["ema"] = whole(step.ema.shadow)
+    opts = optimizers(step)
+    held = {"params": list(model.parameters()),
+            "grads": [p.grad for p in model.parameters() if p.grad is not None],
+            "moments": [v for o, _, _ in opts for st in o.state.values() for v in st.values()
+                        if torch.is_tensor(v) and v.dim() > 0],
+            "ema": list(step.ema.shadow.values())}
+    out["held_bytes"] = {k: sum(v.numel() * v.element_size() for v in vs)
+                         for k, vs in held.items()}
+    out["sharded"] = dict(dims)
+    out["ckpt"] = str(tr.save(TP_STEPS))
+    return out
+
+
+def tp_worker(rank: int, init: str, out_dir: str, device: str, width, batch_size) -> None:
+    """One process of 14 on ``device``: a gloo rank of the dp = 1, tp = 2
+    mesh, or (rank -1) the process alone; ``tp_job``'s arguments."""
+    import torch.distributed as dist
+
+    from open_universe_tpu_torch.parallel import mesh
+
+    if rank >= 0:
+        dist.init_process_group("gloo", init_method=f"file://{init}", world_size=TP_WORLD,
+                                rank=rank)
+        mesh.make_mesh(1, TP_WORLD)
+    try:
+        tf32_flags(False)
+        torch.backends.cudnn.deterministic = True
+        name = f"rank{rank}" if rank >= 0 else "alone"
+        run_dir = os.path.join(out_dir, "tp" if rank >= 0 else "alone")
+        torch.save(tp_job(run_dir, torch.device(device), width, batch_size),
+                   os.path.join(out_dir, f"{name}.pt"))
+    finally:
+        if rank >= 0:
+            dist.destroy_process_group()
+
+
+def nccl_refusal() -> dict:
+    """The training entry point as one NCCL process under torchrun with
+    ``trainer.mesh_tp=2``: it must exit non-zero naming the mismatch."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+         "-m", "open_universe_tpu_torch.train", "experiment=universepp_vb_16k",
+         f"device={DEVICE}", "trainer.mesh_tp=2"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+        timeout=300)
+    text = proc.stdout + proc.stderr
+    named = "trainer.mesh_tp=2 needs 2 processes but the job has 1" in text
+    log(f"[tp refusal] torchrun --nproc_per_node 1 with trainer.mesh_tp=2: exit "
+        f"{proc.returncode}; names the mismatch: {named}")
+    if proc.returncode == 0 or not named:
+        raise AssertionError(f"tp refusal: exit {proc.returncode}: {text[-3000:]}")
+    return {"exit": proc.returncode, "names_mismatch": named}
+
+
+def phase_tensor_parallel():
+    """14: two gloo ranks on cuda:0 (dp = 1, tp = 2) and one process alone
+    (tp = 1), each TP_STEPS full-width GAN steps (bf16 + remat, batch
+    TP_BATCH x 2 s, fixed draws, TF32 off, cuDNN deterministic) through the
+    trainer: the ranks agree bit for bit; step 1's losses equal the one
+    process's; every step's losses within 1e-6 relative; gradients,
+    parameters and EMA as ``compare_runs`` says; each rank holds half of
+    every sharded parameter, gradient, moment and shadow; 0 launches; the
+    checkpoint of the tp ranks has the one process's keys and shapes, and
+    ``load_model`` + ``enhance`` on it launch 94 (58 + 36) and match the
+    kernels off (8c).  Then one NCCL process with trainer.mesh_tp=2 under
+    torchrun refuses."""
+    import shutil
+
+    tmp = tempfile.mkdtemp()
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=tp_worker, args=(r, os.path.join(tmp, "rendezvous"), tmp,
+                                                 DEVICE, TRAIN_OVERRIDES, TP_BATCH))
+             for r in (0, 1, -1)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=900)
+        if p.is_alive():
+            p.kill()
+    if [p.exitcode for p in procs] != [0] * 3:
+        raise AssertionError(f"tp processes exited {[p.exitcode for p in procs]}")
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in (0, 1)]
+    one = torch.load(os.path.join(tmp, "alone.pt"), weights_only=False)
+    r0, r1 = ranks
+    first = {k: v for k, v in one["losses"][0].items() if not k.startswith("grad/")}
+    first_equal = all(r0["losses"][0][k] == v for k, v in first.items())
+    ranks_differ = [n for n, p in r0["params"].items() if not torch.equal(p, r1["params"][n])]
+    ranks_differ += [f"ema {n}" for n, s in r0["ema"].items() if not torch.equal(s, r1["ema"][n])]
+    cmp = compare_runs("tp", r0, one, rel=1e-4, ema=True)
+    shapes = [{p: tuple(t.shape) for p, t in _tensors(torch.load(
+        r["ckpt"], map_location="cpu", weights_only=False))} for r in (r0, one)]
+    half = {k: r0["held_bytes"][k] / one["held_bytes"][k] for k in one["held_bytes"]}
+    sharded_bytes = sum(p.numel() * 4 for n, p in one["params"].items() if n in r0["sharded"])
+    log(f"[tp] {card_line()}: {TP_WORLD} gloo ranks on one {DEVICE} device (dp 1, tp 2) "
+        f"vs one process, {TP_STEPS} steps at batch {TP_BATCH} x 2 s, {TP_OVERRIDES}: step 1 "
+        f"losses equal {first_equal}; ranks differ at {len(ranks_differ)} tensors; sharded "
+        f"parameters {len(r0['sharded'])} of {len(one['params'])} ({sharded_bytes / 2**20:.1f} of "
+        f"{sum(p.numel() * 4 for p in one['params'].values()) / 2**20:.1f} MiB whole); held "
+        f"per rank / one process: " + ", ".join(
+            f"{k} {r0['held_bytes'][k] / 2**20:.1f} / {one['held_bytes'][k] / 2**20:.1f} MiB"
+            for k in one["held_bytes"]))
+    log(f"[tp] peak memory: rank 0 {r0['peak_mem_gib']:.2f}, rank 1 {r1['peak_mem_gib']:.2f}, "
+        f"one process {one['peak_mem_gib']:.2f} GiB; step s: rank 0 "
+        f"{[round(s, 3) for s in r0['step_s']]}, one process "
+        f"{[round(s, 3) for s in one['step_s']]} (gloo through the host: a correctness run); "
+        f"launches in the steps {r0['launches']}, {r1['launches']}, {one['launches']}; "
+        f"checkpoint keys and shapes equal: {shapes[0] == shapes[1]}; {wall:.1f} s")
+    if not first_equal or ranks_differ or shapes[0] != shapes[1] or \
+            r0["launches"] or r1["launches"] or one["launches"] or not r0["sharded"] or \
+            not all(0.4 < v < 1.0 for k, v in half.items()):
+        raise AssertionError(f"tp: first losses equal {first_equal}, ranks {ranks_differ[:3]}, "
+                             f"shapes {shapes[0] == shapes[1]}, launches "
+                             f"{[r0['launches'], r1['launches'], one['launches']]}, held {half}")
+    trained = phase_trained_checkpoint(r0["ckpt"])
+    refusal = nccl_refusal()
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {"world": TP_WORLD, "dp": 1, "tp": TP_WORLD, "batch": TP_BATCH,
+            "steps": TP_STEPS, "overrides": TP_OVERRIDES, "first_losses_equal": first_equal,
+            **cmp, "sharded_parameters": len(r0["sharded"]),
+            "parameters": len(one["params"]), "sharded_mib": sharded_bytes / 2**20,
+            "held_mib": {f"rank{i}": {k: v / 2**20 for k, v in r["held_bytes"].items()}
+                         for i, r in enumerate(ranks)},
+            "held_mib_alone": {k: v / 2**20 for k, v in one["held_bytes"].items()},
+            "peak_mem_gib": {"rank0": r0["peak_mem_gib"], "rank1": r1["peak_mem_gib"],
+                             "alone": one["peak_mem_gib"]},
+            "step_s": {"rank0": r0["step_s"], "rank1": r1["step_s"], "alone": one["step_s"]},
+            "launches_per_step": [r0["launches"] / TP_STEPS, one["launches"] / TP_STEPS],
+            "wall_s": wall, "trained_checkpoint_enhance": trained, "nccl_refusal": refusal}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3426,6 +3642,8 @@ def main() -> int:
     lap("13c phoneme LoRA step card vs cpu")
     phoneme["lps"] = phase_lps(phoneme["dir"], ckpt)
     lap("13d lps")
+    tensor_parallel = phase_tensor_parallel()
+    lap("14 tensor parallelism")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     def cli_entry(entry):
@@ -3513,6 +3731,10 @@ def main() -> int:
         # widths, random weights): the loss's time, LoRA with it (0
         # launches: adapters attached), a narrow step vs the CPU, lps
         "phoneme": phoneme,
+        # phase 14: tensor parallelism (2 gloo ranks on cuda:0, dp 1 x tp 2,
+        # against one process; 0 launches in the steps) and the tp run's
+        # checkpoint enhanced through the kernel
+        "tensor_parallel": tensor_parallel,
     }, {
         "name": "fused_conv_chain_rows",
         "route": "cuda",
@@ -3561,6 +3783,11 @@ def main() -> int:
             "parity_cli": scale["clis"]["parity_launches"].get("fused_conv_chain_rows", 0)},
         # phase 13: LoRA with the phoneme loss (0 launches in steps and validation)
         "phoneme_lora_launches": phoneme["lora"]["launches"],
+        # phase 14: the tp ranks' steps (0) and their checkpoint's enhance
+        "tensor_parallel_launches": {
+            "per_step": tensor_parallel["launches_per_step"],
+            "checkpoint_enhance": tensor_parallel["trained_checkpoint_enhance"][
+                "launches"].get("fused_conv_chain_rows", 0)},
     }]}
     for tag, sh in (("batch 128, 16 kHz", shapes), ("batch 128, 24 kHz", shapes_24k),
                     ("rows, batch 16", rows_shapes)):

@@ -223,6 +223,9 @@ class ConvBlock(nn.Module):
                 return False
             if conv.act_type != "prelu" or not conv.conv.folded:
                 return False
+            # a tensor-parallel shard: the kernel reads whole weights
+            if getattr(conv.conv, "tp_dims", None):
+                return False
             if conv.prelu.num_parameters != 1:
                 return False
         if torch.is_grad_enabled() and (

@@ -11,6 +11,10 @@ the output channel of a conv or linear and the INPUT channel of a transposed
 conv) until ``fold_weight_norm`` replaces them with ``weight``.  Weights are
 cast to the input's dtype at use, so a bf16 input runs the layer in bf16.
 
+A tensor-parallel run (``parallel/tp.py``) stores some weights as shards;
+``effective_weight`` and ``GRU.forward`` gather them whole where they are
+used.
+
 ``seed_parameters(generator)`` draws the JAX package's initialisation
 (uniform in +-1/sqrt(fan_in)); ``init_weights`` applies it to a whole model.
 """
@@ -24,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import conv as ops_conv
+from ..parallel import tp
 from ..utils.random import fixed_normal
 
 
@@ -61,8 +66,8 @@ class _Weighted(nn.Module):
 
     def effective_weight(self) -> torch.Tensor:
         if self.folded:
-            return self.weight
-        return weight_norm(self.weight_g, self.weight_v)
+            return tp.weight(self, "weight")
+        return weight_norm(self.weight_g, tp.weight(self, "weight_v"))
 
     @torch.no_grad()
     def fold_weight_norm(self) -> None:
@@ -247,7 +252,7 @@ class GRU(nn.GRU):
         forward in training mode, which is taken only where a backward can
         follow."""
         n_dir = 2 if self.bidirectional else 1
-        weights = [w.to(x.dtype) for w in self._flat_weights]
+        weights = [tp.weight(self, n).to(x.dtype) for n in self._flat_weights_names]
         h0 = x.new_zeros(self.num_layers * n_dir, x.shape[0], self.hidden_size)
         train = self.training and torch.is_grad_enabled()
         out, _ = torch.gru(x, h0, weights, True, self.num_layers, 0.0, train,

@@ -32,6 +32,7 @@ import torch
 from torch import nn
 
 from ..ops import conv as ops_conv
+from ..parallel import tp
 from .layers import Conv1d, ConvTranspose1d, Linear
 
 LORA_TYPES = (Conv1d, ConvTranspose1d, Linear)
@@ -83,9 +84,9 @@ class LoraLayer(nn.Module):
 
     def delta(self) -> torch.Tensor:
         """(alpha / r) * A @ B in the base weight's torch layout."""
-        a, b = getattr(self, self.a_name), getattr(self, self.b_name)
+        a, b = tp.weight(self, self.a_name), tp.weight(self, self.b_name)
         base = self.base
-        shape = base.weight.shape if base.folded else base.weight_v.shape
+        shape = tp.full_shape(base, "weight" if base.folded else "weight_v")
         return ((a @ b) * (self.lora_alpha / self.rank)).reshape(shape)
 
     def effective_weight(self) -> torch.Tensor:

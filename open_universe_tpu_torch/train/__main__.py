@@ -24,10 +24,13 @@ load with ``inference/model_loader.py::load_model``.  It runs on CUDA unless
 Under ``torchrun`` every process joins the job's process group
 (``parallel/mesh.py``: NCCL, one card per process, ``cuda:<LOCAL_RANK>``;
 gloo with ``device=cpu``) and trains data-parallel on its rows of the
-configured batch, which is the global batch; ``trainer.mesh_dp``, when
-set, must equal the number of processes, and ``trainer.mesh_tp`` > 1
-raises.  Rank 0 names the run directory, validates, tests and writes the
-checkpoints.  ``model.training.compute_dtype=bf16``,
+configured batch, which is the global batch.  ``trainer.mesh_tp`` > 1
+lays the processes out as JAX's (dp, tp) mesh (``trainer.mesh_dp``
+defaults to the number of processes over ``mesh_tp``; dp x tp must be the
+number of processes) and stores the wide weights (JAX's rule: a last JAX
+axis of 128 or more), their gradients, moments and EMA shadows as tp
+shards (``parallel/tp.py``).  Rank 0 names the run directory, validates,
+tests and writes the checkpoints.  ``model.training.compute_dtype=bf16``,
 ``model.training.remat=true`` and
 ``model.optimizer.accumulate_grad_batches=<k>`` set mixed precision,
 recomputation and gradient accumulation.
@@ -102,8 +105,7 @@ def main(argv=None):
     elif cfg.get("ckpt_path"):
         trainer.restore(cfg["ckpt_path"])
     if cfg.get("test", False):
-        if mesh.is_main():
-            trainer.test()
+        trainer.test()  # rank 0's; the tp ranks gather the weights with it
         mesh.barrier()
     return trainer
 

@@ -13,7 +13,9 @@
 * ``clip_by_norm_``: the JAX package's clipping rule, scale
   min(1, max / max(norm, 1e-12)) (not ``clip_grad_norm_``'s
   max / (norm + 1e-6)); ``FixedClipper`` and ``AutoClipper`` use it, and
-  ``make_clipper`` builds one from a ``grad_clipper`` config node.
+  ``make_clipper`` builds one from a ``grad_clipper`` config node.  The
+  norm is of the whole gradients under tensor parallelism too: the steps
+  flag the shards (``sharded``).
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ import math
 from typing import Callable, Iterable, Optional, Sequence, Tuple
 
 import torch
+
+from ..parallel import tp
 
 
 def linear_warmup_cosine_annealing(base_lr: float, t_warmup: int, t_cosine: int,
@@ -100,20 +104,31 @@ def set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
         group["lr"] = lr
 
 
-def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+def global_norm(grads: Sequence[torch.Tensor],
+                sharded: Optional[Sequence[bool]] = None) -> torch.Tensor:
+    """The norm of the whole gradients: those flagged in ``sharded`` are
+    tensor-parallel shards, whose squares are summed over the tp ranks
+    (``parallel/tp.py::sum_squares``)."""
+    if sharded is not None and any(sharded):
+        return torch.sqrt(tp.sum_squares(grads, sharded))
     return torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
 
 
-def clip_by_norm_(grads: Sequence[torch.Tensor], max_norm) -> torch.Tensor:
-    """Scale ``grads`` in place by min(1, max_norm / max(norm, 1e-12)) of
-    their global norm, which is returned."""
-    grads = list(grads)
-    if not grads:
-        return torch.zeros(())
-    norm = global_norm(grads)
+def _scale_(grads: Sequence[torch.Tensor], norm: torch.Tensor, max_norm) -> None:
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     for g in grads:
         g.mul_(scale.to(g.dtype))
+
+
+def clip_by_norm_(grads: Sequence[torch.Tensor], max_norm,
+                  sharded: Optional[Sequence[bool]] = None) -> torch.Tensor:
+    """Scale ``grads`` in place by min(1, max_norm / max(norm, 1e-12)) of
+    their global norm (``global_norm``), which is returned."""
+    grads = list(grads)
+    if not grads:
+        return torch.zeros(())
+    norm = global_norm(grads, sharded)
+    _scale_(grads, norm, max_norm)
     return norm
 
 
@@ -121,9 +136,11 @@ class FixedClipper:
     def __init__(self, max_norm: float):
         self.max_norm = max_norm
 
-    def __call__(self, grads: Sequence[torch.Tensor]):
+    def __call__(self, grads: Sequence[torch.Tensor],
+                 sharded: Optional[Sequence[bool]] = None):
         """Clip in place; returns (norm, clip norm)."""
-        return clip_by_norm_(grads, self.max_norm), torch.tensor(float(self.max_norm))
+        return (clip_by_norm_(grads, self.max_norm, sharded),
+                torch.tensor(float(self.max_norm)))
 
 
 class AutoClipper:
@@ -135,18 +152,17 @@ class AutoClipper:
         self.history = torch.full((history_size,), math.inf)
         self.count = 0
 
-    def __call__(self, grads: Sequence[torch.Tensor]):
+    def __call__(self, grads: Sequence[torch.Tensor],
+                 sharded: Optional[Sequence[bool]] = None):
         grads = list(grads)
-        norm = global_norm(grads)
+        norm = global_norm(grads, sharded)
         size = self.history.shape[0]
         self.history = self.history.to(norm.device)
         self.history[self.count % size] = norm
         self.count += 1
         n = min(self.count, size)
         clip = torch.sort(self.history).values[min(max(int(self.p * n), 0), n - 1)]
-        scale = torch.clamp(clip / torch.clamp(norm, min=1e-12), max=1.0)
-        for g in grads:
-            g.mul_(scale.to(g.dtype))
+        _scale_(grads, norm, clip)
         return norm, clip
 
 

@@ -46,9 +46,12 @@ moves on every call.  The discriminators' optimizer accumulates on its
 own, from the first step it is not frozen.
 
 Data parallelism (``parallel/mesh.py``): the batch and the draws are the
-global batch's, each rank computes its rows, and every gradient is
-averaged over the ranks before it is clipped; the metrics (and
-``nan_guard``'s check) are the ranks' means.
+global batch's, each rank computes its dp group's rows, and every gradient
+is averaged over the ranks before it is clipped; the metrics (and
+``nan_guard``'s check) are the ranks' means.  Under tensor parallelism
+(``parallel/tp.py``) a sharded parameter's gradient, moments and
+accumulator are shards: the gradient is averaged over the dp group and
+enters the clip norms whole.
 
 The gradients of the last step stay in each parameter's ``.grad`` (after
 clipping, or the accumulated mean where an update was applied) until the
@@ -63,7 +66,7 @@ import torch
 
 from ..models.universe import Universe
 from ..models.universe_gan import UniverseGAN
-from ..parallel import mesh
+from ..parallel import mesh, tp
 from .ema import EMA
 from .optim import AutoClipper, clip_by_norm_, global_norm, set_lr
 
@@ -130,6 +133,12 @@ def aux_weight(model, step: int) -> float:
     return 1.0 if step >= start else 0.0
 
 
+def _sharded(model, params) -> list:
+    """Which of ``params`` are tensor-parallel shards."""
+    dims = tp.param_dims(model)
+    return [id(p) in dims for p in params]
+
+
 class TrainStep:
     """Applies steps to ``model`` (a plain UNIVERSE built with its losses,
     or a model of the enhancement family) in place.  ``opt`` updates the
@@ -147,6 +156,7 @@ class TrainStep:
         self.clipper = clipper
         self.nan_guard = bool(model.train_kwargs.get("nan_guard", False))
         self.params = [p for p in model.parameters() if p.requires_grad]
+        self.sharded = _sharded(model, self.params)
         self.accum = GradAccumulator(self.params, accumulate)
         self.step = self.updates = 0
 
@@ -178,16 +188,16 @@ class TrainStep:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
-        mesh.all_mean_(grads)
+        mesh.all_mean_(grads, self.sharded)
         # nothing is updated before the check but AutoClip's history
         saved = (copy.deepcopy(self.clipper.__dict__)
                  if self.nan_guard and isinstance(self.clipper, AutoClipper) else None)
         if self.clipper is not None:
-            gnorm, clip = self.clipper(grads)
+            gnorm, clip = self.clipper(grads, self.sharded)
             metrics["grad/norm"] = gnorm
             metrics["grad/clipped_norm"] = torch.minimum(gnorm, clip.to(gnorm.device))
         else:
-            metrics["grad/norm"] = global_norm(grads)
+            metrics["grad/norm"] = global_norm(grads, self.sharded)
         metrics = _mean_metrics({**metrics, "_loss": loss})
         ok = True
         if self.nan_guard:
@@ -232,6 +242,8 @@ class GANTrainStep:
         self.score_p = _params(model, ["score_model"])
         self.cond_p = _params(model, [k for k in model.model_param_keys()
                                       if k != "score_model"])
+        self.sharded = {name: _sharded(model, ps) for name, ps in (
+            ("mpd", self.mpd), ("mrd", self.mrd), ("score", self.score_p), ("cond", self.cond_p))}
         self.gen_accum = GradAccumulator(self.score_p + self.cond_p, accumulate)
         self.disc_accum = GradAccumulator(self.mpd + self.mrd, accumulate)
         self.step = self.gen_updates = self.disc_updates = 0
@@ -253,6 +265,7 @@ class GANTrainStep:
         model = self.model
         draws = draws or {}
         mpd, mrd, score_p, cond_p = self.mpd, self.mrd, self.score_p, self.cond_p
+        sh = self.sharded
         for p in mpd + mrd + score_p + cond_p:
             p.grad = None
 
@@ -287,9 +300,11 @@ class GANTrainStep:
             l_disc, d_metrics = model.discriminator_losses(gen_out["y_est"].detach(),
                                                            target_original)
             l_disc.backward()
-            mesh.all_mean_([p.grad for p in mpd + mrd])
-            gnorm_mpd = clip_by_norm_([p.grad for p in mpd], self.clip_vals.get("mpd", 1000.0))
-            gnorm_mrd = clip_by_norm_([p.grad for p in mrd], self.clip_vals.get("mrd", 1000.0))
+            mesh.all_mean_([p.grad for p in mpd + mrd], sh["mpd"] + sh["mrd"])
+            gnorm_mpd = clip_by_norm_([p.grad for p in mpd], self.clip_vals.get("mpd", 1000.0),
+                                      sh["mpd"])
+            gnorm_mrd = clip_by_norm_([p.grad for p in mrd], self.clip_vals.get("mrd", 1000.0),
+                                      sh["mrd"])
             freeze = model.disc_freeze_step
             adv_on = disc_applied = self.step >= freeze if freeze > 0 else True
             if disc_applied:
@@ -312,9 +327,11 @@ class GANTrainStep:
             for p in mpd + mrd:
                 p.requires_grad_(True)
         l_gen.backward()
-        mesh.all_mean_([p.grad for p in score_p + cond_p])
-        gnorm_score = clip_by_norm_([p.grad for p in score_p], self.clip_vals.get("score", 1000.0))
-        gnorm_cond = clip_by_norm_([p.grad for p in cond_p], self.clip_vals.get("cond", 1000.0))
+        mesh.all_mean_([p.grad for p in score_p + cond_p], sh["score"] + sh["cond"])
+        gnorm_score = clip_by_norm_([p.grad for p in score_p],
+                                    self.clip_vals.get("score", 1000.0), sh["score"])
+        gnorm_cond = clip_by_norm_([p.grad for p in cond_p], self.clip_vals.get("cond", 1000.0),
+                                   sh["cond"])
 
         metrics = {**d_metrics, **g_metrics, "grad/score": gnorm_score,
                    "grad/cond": gnorm_cond, "grad/mpd": gnorm_mpd, "grad/mrd": gnorm_mrd}

@@ -56,10 +56,18 @@ optimizer's gradient accumulator (``grad_accumulators``: its running mean
 and count), so a run resumed in the middle of an accumulation continues it.
 
 Data parallelism (``parallel/mesh.py``, under ``torchrun``): every rank
-draws the same weights and takes every step on its rows of the same global
-batch; only rank 0 logs, validates, tests and writes checkpoints and the
-json files beside them, then sends the adaptive histogram to the others,
-which wait at a barrier.  On resume every rank loads the checkpoint.
+draws the same weights and takes every step on its dp group's rows of the
+same global batch; only rank 0 logs, validates, tests and writes
+checkpoints and the json files beside them, then sends the adaptive
+histogram to the others, which wait at a barrier.  On resume every rank
+loads the checkpoint.  Tensor parallelism (``trainer.mesh_tp`` > 1,
+``parallel/tp.py``): after drawing the weights each rank keeps its slices
+of the parameters that JAX's rule shards (``tp_min_shard``, JAX's
+``min_last``), so its moments, accumulators and EMA shadows are slices too;
+``validate``, ``test`` and ``save`` are called on every rank, which gather
+the shards together, and rank 0 alone validates, tests and writes (full
+tensors: the checkpoint is a one-process run's); ``restore`` cuts a full
+checkpoint to the rank's slices, so a run resumes at any tp.
 ``profile_steps=(start, stop)`` traces steps start..stop-1 with
 ``torch.profiler`` into ``<run>/profile`` (JAX's ``jax.profiler`` trace).
 """
@@ -85,7 +93,7 @@ from ..models.universe import Universe
 from ..models.universe_gan import UniverseGAN
 from ..models.universe_lora import UniverseLoRA
 from ..nn.layers import init_weights
-from ..parallel import mesh
+from ..parallel import mesh, tp
 from ..utils.convert import fold_weight_norm
 from ..utils.device import resolve_device
 from .ema import EMA
@@ -178,7 +186,7 @@ class Trainer:
                  checkpoint_every: Optional[int] = None,
                  max_val_batches: Optional[int] = None,
                  config: Optional[dict] = None, device=None,
-                 profile_steps: Optional[tuple] = None):
+                 profile_steps: Optional[tuple] = None, tp_min_shard: int = 128):
         if not (isinstance(model, EnhancementBaseModel)
                 or isinstance(model, Universe) and model.built_for_training):
             raise NotImplementedError(
@@ -196,6 +204,7 @@ class Trainer:
         self.config = config
         self.device = resolve_device(device)
         self.profile_steps = profile_steps
+        self.tp_min_shard = tp_min_shard  # the narrowest last JAX axis tp shards
         self._last_val: Dict[str, float] = {}
         self._first_val_done = False
         self.val_timing: Dict[str, float] = {}
@@ -212,6 +221,7 @@ class Trainer:
         if not isinstance(self.model, UniverseLoRA):
             init_weights(self.model, self.seed)
         self.model.to(self.device).train()
+        tp.shard_(self.model, self.tp_min_shard)  # this rank's slices (none without tp)
         self.step_fn = make_step(self.model, self.max_steps)
         self.ema = self.step_fn.ema
         # the metric suite of validation and test (EvalMetrics by default)
@@ -293,9 +303,8 @@ class Trainer:
                     self._log(metrics, step)
                 if step % self.val_check_interval == 0:
                     t_val = time.perf_counter()
-                    if mesh.is_main():
-                        self._last_val = self.validate(step)
-                        self._log({**self._last_val, **self.val_timing}, step)
+                    self._last_val = self.validate(step)  # rank 0's
+                    self._log({**self._last_val, **self.val_timing}, step)
                     self._share_validation()
                     t0 += time.perf_counter() - t_val  # not a step's time
                 if step % self.checkpoint_every == 0 and step != self.max_steps:
@@ -333,22 +342,28 @@ class Trainer:
         log.info("profiler trace written to %s", path)
 
     # ------------------------------------------------------------------
-    def _eval_model(self) -> Universe:
+    def _eval_model(self) -> Optional[Universe]:
         """A copy of the model (its loss modules left out: the
         discriminators or the MDN losses) with the EMA shadow as its
-        weights, weight norm folded, in eval mode and without gradients: the
-        model validation and test run, whose ConvBlocks the fused kernel
-        takes.  A LoRA fine-tune keeps its kept discriminators (its
-        validation loss uses them) and its adapters, so its ConvBlocks run
-        unfused."""
+        weights, whole (every tp rank gathers its shards into it), weight
+        norm folded, in eval mode and without gradients: the model
+        validation and test run on rank 0, whose ConvBlocks the fused
+        kernel takes; None on the other ranks.  A LoRA fine-tune keeps its
+        kept discriminators (its validation loss uses them) and its
+        adapters, so its ConvBlocks run unfused."""
         m = self.model
+        if not (mesh.is_main() or tp.dims(m)):
+            return None
         skip = {id(getattr(m, k)): None for k in m.loss_param_keys()}
         ev = copy.deepcopy(m, skip)
+        if self.ema is not None:
+            self.ema.apply_to(ev)
+        tp.unshard_(ev)
+        if not mesh.is_main():
+            return None
         for mod in ev.modules():
             if isinstance(mod, torch.nn.RNNBase):
                 mod.flatten_parameters()  # as .to() leaves them; a copy does not
-        if self.ema is not None:
-            self.ema.apply_to(ev)
         return fold_weight_norm(ev).requires_grad_(False).eval()
 
     def _pad_to_bucket(self, x: torch.Tensor) -> torch.Tensor:
@@ -398,11 +413,14 @@ class Trainer:
         its ``validation_losses``, then {"noise"} for its ``enhance``);
         without it they come from a generator seeded with ``VAL_SEED``.  ``val_timing`` keeps the wall seconds: the model's
         passes (synchronised; the enhance calls among them) and the host
-        metrics."""
+        metrics.  Under tensor parallelism every rank calls it (the shards
+        are gathered together); the others return {}."""
         if not isinstance(self.model, Universe):
             return self._validate_enhancement(step, draws)
         t_start = time.perf_counter()
         model = self._eval_model()
+        if model is None:
+            return {}
         n_bins = model.val_kwargs.get("n_bins", 5)
         max_enh = model.val_kwargs.get("max_enh_batches", 4)
         gen = torch.Generator(device=self.device).manual_seed(VAL_SEED)
@@ -469,6 +487,8 @@ class Trainer:
         the first ``max_enh_batches``."""
         t_start = time.perf_counter()
         model = self._eval_model()
+        if model is None:
+            return {}
         max_enh = model.val_kwargs.get("max_enh_batches", 4)
         gen = torch.Generator(device=self.device).manual_seed(VAL_SEED)
         loss_sums: Dict[str, float] = {}
@@ -510,12 +530,15 @@ class Trainer:
         """Test-set evaluation (reference train.py:105-119): enhance every
         test clip, run the metric suite, and write per-file results and
         their means to the run dir in ``bin/eval_metrics.py``'s schema.
-        ``draws`` as in ``validate``: one {"noise"} per batch."""
+        ``draws`` as in ``validate``: one {"noise"} per batch.  Under tensor
+        parallelism every rank calls it; the others return {}."""
         from ..bin.eval_metrics import summarize
 
         if step is None:
             step = self.step_fn.step
         model = self._eval_model()
+        if model is None:
+            return {}
         gen = torch.Generator(device=self.device).manual_seed(VAL_SEED)
         results: Dict[str, Dict[str, float]] = {}
         for batch in self.dm.test_dataloader():
@@ -581,35 +604,56 @@ class Trainer:
     def save(self, step: int) -> Path:
         """Write ``checkpoints/step_<step>.ckpt`` in the reference's layout,
         then last.json, index.json and best.json (rank 0; the other ranks
-        wait)."""
+        gather their tp shards with it, then wait)."""
         path = self.output_dir / "checkpoints" / f"step_{step:08d}.ckpt"
+        ckpt = self._checkpoint(step)
         if mesh.is_main():
-            self._write_checkpoint(step, path)
+            torch.save(ckpt, path)
+            self._commit_last_json(step, path,
+                                   self._last_val.get(self.model.val_kwargs.get("main_loss")))
+            log.info("saved checkpoint %s", path)
         mesh.barrier()
         return path
 
-    def _write_checkpoint(self, step: int, path: Path) -> None:
+    def _checkpoint(self, step: int) -> Optional[Dict[str, Any]]:
+        """The checkpoint's content, every tensor whole (the tp ranks gather
+        their shards together); None on a rank that writes nothing and
+        holds no shard."""
+        dims = tp.dims(self.model)
+        if not (mesh.is_main() or dims):
+            return None
         step_fn = self.step_fn
-        sd = {self._ckpt_key(k): v.detach().cpu() for k, v in self.model.state_dict().items()}
+        pdims = tp.param_dims(self.model)
+        sd = {self._ckpt_key(k): v.detach().cpu()
+              for k, v in tp.gather_state(self.model.state_dict(), dims).items()}
         opts = optimizers(step_fn)
         ckpt: Dict[str, Any] = {
             "state_dict": sd, "global_step": step,
-            "optimizer_states": [o.state_dict() for o, _, _ in opts],
+            "optimizer_states": [tp.gather_optimizer(o, pdims) for o, _, _ in opts],
             "lr_schedulers": [{"updates": getattr(step_fn, count),
                                "_last_lr": [g["lr"] for g in o.param_groups]}
                               for o, count, _ in opts]}
         if any(acc.k > 1 for _, _, acc in opts):
-            ckpt["grad_accumulators"] = [acc.state_dict() for _, _, acc in opts]
+            ckpt["grad_accumulators"] = [self._accumulator_state(acc, tp.gather)
+                                         for _, _, acc in opts]
         if self.ema is not None:
             names = ordered_param_names(sd, self.model.model_param_keys())
-            ckpt["ema"] = {"shadow_params": [self.ema.shadow[normalize_key(n)].cpu()
-                                             for n in names],
+            shadow = tp.gather_state(self.ema.shadow, dims)
+            ckpt["ema"] = {"shadow_params": [shadow[normalize_key(n)].cpu() for n in names],
                            "decay": self.ema.decay,
                            "num_updates": self.ema.num_updates}
-        torch.save(ckpt, path)
-        self._commit_last_json(step, path,
-                               self._last_val.get(self.model.val_kwargs.get("main_loss")))
-        log.info("saved checkpoint %s", path)
+        return ckpt
+
+    def _accumulator_state(self, acc, fn, state=None) -> Dict[str, Any]:
+        """An accumulator's state (``acc.state_dict()`` by default) with
+        ``fn`` (``tp.gather`` or ``tp.local``) applied to the running means
+        of sharded parameters."""
+        state = dict(acc.state_dict() if state is None else state)
+        pdims = tp.param_dims(self.model)
+        if state["acc"] is not None and pdims:
+            state["acc"] = [fn(a, pdims[id(p)]) if id(p) in pdims else a
+                            for a, p in zip(state["acc"], acc.params)]
+        return state
 
     def _ckpt_key(self, name: str) -> str:
         """A state_dict name as the reference's checkpoint writes it: a LoRA
@@ -660,7 +704,9 @@ class Trainer:
                 last = Path(json.load(f)["path"])
             p = last if last.exists() else p / last.name
         ckpt = torch.load(p, map_location=self.device, weights_only=False)
-        self.model.load_state_dict({normalize_key(k): v for k, v in ckpt["state_dict"].items()})
+        dims, pdims = tp.dims(self.model), tp.param_dims(self.model)
+        self.model.load_state_dict(tp.scatter_state(
+            {normalize_key(k): v for k, v in ckpt["state_dict"].items()}, dims))
         step_fn = self.step_fn
         opts = optimizers(step_fn)
         if len(ckpt["optimizer_states"]) != len(opts):
@@ -669,15 +715,17 @@ class Trainer:
         accs = ckpt.get("grad_accumulators") or [None] * len(opts)
         for (opt, count, acc), state, sch, acc_state in zip(
                 opts, ckpt["optimizer_states"], ckpt["lr_schedulers"], accs):
-            opt.load_state_dict(state)
+            opt.load_state_dict(tp.scatter_optimizer(opt, state, pdims))
             setattr(step_fn, count, int(sch["updates"]))
             if acc_state is not None:
-                acc.load_state_dict(acc_state)
+                acc.load_state_dict(self._accumulator_state(acc, tp.local, acc_state))
         if self.ema is not None:
             names = ordered_param_names(ckpt["state_dict"], self.model.model_param_keys())
+            shadow = tp.scatter_state({normalize_key(n): s for n, s in
+                                       zip(names, ckpt["ema"]["shadow_params"])}, dims)
             with torch.no_grad():
-                for n, s in zip(names, ckpt["ema"]["shadow_params"]):
-                    self.ema.shadow[normalize_key(n)].copy_(s)
+                for n, s in shadow.items():
+                    self.ema.shadow[n].copy_(s)
             self.ema.num_updates = int(ckpt["ema"]["num_updates"])
         step_fn.step = int(ckpt["global_step"])
         log.info("restored checkpoint %s (step %d)", p, step_fn.step)

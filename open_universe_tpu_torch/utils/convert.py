@@ -22,13 +22,15 @@ above, its ``lora_*`` leaves as they are (both sides hold them in torch
 layout), and a ``UniverseLoRA``'s ``{"model": ...}`` root, with the kept
 discriminators, onto its ``model``.
 
+``jax_layout`` gives a port leaf's JAX shape and the port's axis that holds
+JAX's last one (``parallel/tp.py`` places the tensor-parallel shards by it).
 ``fold_weight_norm`` replaces every (weight_g, weight_v) pair by its weight,
 as the inference loader does.  ``from_flax_wav2vec2`` carries a Flax
 ``FlaxWav2Vec2ForCTC`` tree over to the port's ``nn/wav2vec2.py`` names.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,30 +39,48 @@ from torch import nn
 from ..nn.layers import GRU, Conv1d, Conv2d, ConvTranspose1d, Linear, _Weighted
 
 
+# the JAX axes a weight's torch axes hold, in torch order (a transposed
+# conv's taps are also flipped); a weight_g is (N,) in JAX, (N, 1, ...) here
+_WEIGHT_AXES = ((Conv1d, (2, 1, 0)), (ConvTranspose1d, (1, 2, 0)), (Conv2d, (3, 2, 0, 1)),
+                (Linear, (1, 0)), (GRU, (1, 0)))
+
+
+def _weight_axes(module: nn.Module, leaf: str):
+    """(JAX axes in torch order, or None for a leaf both packages lay out
+    alike; whether the leaf is a weight_g)."""
+    for cls, axes in _WEIGHT_AXES:
+        if isinstance(module, cls):
+            if leaf in ("weight", "weight_v") or (cls is GRU and leaf.startswith("weight")):
+                return axes, False
+            if leaf == "weight_g" and cls is not GRU:
+                return axes, True
+    return None, False
+
+
 def _to_port_layout(module: nn.Module, leaf: str, v: np.ndarray) -> np.ndarray:
-    if isinstance(module, Conv1d):
-        if leaf in ("weight", "weight_v"):
-            return v.transpose(2, 1, 0)
-        if leaf == "weight_g":
-            return v.reshape(-1, 1, 1)
-    elif isinstance(module, ConvTranspose1d):
-        if leaf in ("weight", "weight_v"):
-            return v[::-1].transpose(1, 2, 0)
-        if leaf == "weight_g":
-            return v.reshape(-1, 1, 1)
-    elif isinstance(module, Conv2d):
-        if leaf in ("weight", "weight_v"):
-            return v.transpose(3, 2, 0, 1)
-        if leaf == "weight_g":
-            return v.reshape(-1, 1, 1, 1)
-    elif isinstance(module, Linear):
-        if leaf in ("weight", "weight_v"):
-            return v.T
-        if leaf == "weight_g":
-            return v.reshape(-1, 1)
-    elif isinstance(module, GRU) and leaf.startswith("weight"):
-        return v.T
-    return v
+    axes, gain = _weight_axes(module, leaf)
+    if axes is None:
+        return v
+    if gain:
+        return v.reshape((-1,) + (1,) * (len(axes) - 1))
+    if isinstance(module, ConvTranspose1d):
+        v = v[::-1]
+    return v.transpose(*axes)
+
+
+def jax_layout(module: nn.Module, leaf: str, shape) -> Tuple[Tuple[int, ...], Optional[int]]:
+    """A port leaf's shape in the JAX package's layout, and the port's axis
+    that holds JAX's last axis (None for a 1-D JAX leaf: a weight_g)."""
+    shape = tuple(shape)
+    axes, gain = _weight_axes(module, leaf)
+    if axes is None:
+        return shape, len(shape) - 1
+    if gain:
+        return (shape[0],), None
+    jax_shape = [0] * len(axes)
+    for port_dim, jax_dim in enumerate(axes):
+        jax_shape[jax_dim] = shape[port_dim]
+    return tuple(jax_shape), axes.index(len(axes) - 1)
 
 
 def _leaves(tree: Dict[str, Any], prefix: str = ""):

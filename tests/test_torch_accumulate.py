@@ -21,6 +21,7 @@ import copy
 
 import numpy as np
 import pytest
+from threadpoolctl import threadpool_limits
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
@@ -93,7 +94,8 @@ def narrow_gan_config():
 def _one_torch_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1):  # numpy's BLAS too
+        yield
     torch.set_num_threads(n)
 
 

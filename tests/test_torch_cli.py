@@ -17,6 +17,7 @@ overlap-add blend (through a stand-in model whose enhance is a gain) within
 """
 import numpy as np
 import pytest
+from threadpoolctl import threadpool_limits
 import yaml
 
 jax = pytest.importorskip("jax")
@@ -44,6 +45,17 @@ TOL = 2e-5 + 1.0 / 32767
 EMA_SUBS = ["_edm_model", "condition_model", "signal_decoupling_layer"]
 CLI_ARGS = ["--batch-size", "2", "--bucket-seconds", "0.5", "--use_aux_signal", "true"]
 CHUNK_ARGS = ["--chunk-seconds", "0.2"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: these small tensors gain nothing from more, and
+    more oversubscribe the cores the other test workers use."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpool_limits(1):  # numpy's BLAS too
+        yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

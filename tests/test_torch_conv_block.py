@@ -10,6 +10,7 @@ holds it against the plain version there.  Here the f32 route's numerics
 """
 import numpy as np
 import pytest
+from threadpoolctl import threadpool_limits
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
@@ -27,6 +28,17 @@ from open_universe_tpu_torch.ops.kernels import conv_block  # noqa: E402
 from open_universe_tpu_torch.utils.convert import from_jax_params  # noqa: E402
 
 TOL = 2e-5
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: these small tensors gain nothing from more, and
+    more oversubscribe the cores the other test workers use."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpool_limits(1):  # numpy's BLAS too
+        yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture

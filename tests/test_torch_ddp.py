@@ -26,7 +26,7 @@ losses within 1e-5 relative, the gradients within 1e-5 of each tensor's
 largest (1e-4 for a one-element PReLU slope, one sum over the batch), the
 parameters after 2 steps as above.  ``finite_or_skip`` with the
 non-finite row on one rank only skips on both, as JAX's global-batch flag
-does.  ``trainer.mesh_dp`` and ``mesh_tp`` are checked by ``init_from_env``.
+does.  ``trainer.mesh_dp`` x ``mesh_tp`` must cover the job (``init_from_env``).
 The training entry point under ``torchrun --standalone --nproc_per_node 2``
 (gloo, ``device=cpu``, ``trainer.mesh_dp=2``, bf16, accumulation) trains a
 tiny UNIVERSE++ on 2 steps, and rank 0 alone names the run, logs, validates
@@ -379,13 +379,15 @@ def test_entry_point_under_torchrun(ddp):
 
 
 def test_init_from_env_checks_the_mesh(monkeypatch):
-    """One process (no torchrun environment): mesh_dp must be 1 if set,
-    mesh_tp > 1 raises naming ROADMAP; no rows are taken."""
+    """One process (no torchrun environment): the mesh must cover the job,
+    mesh_dp x mesh_tp = 1, so mesh_dp = 2 raises, and so does mesh_tp = 2
+    (a tp = 2 mesh needs 2 processes; ``test_torch_tp.py`` trains on one),
+    naming the mismatch; no rows are taken and nothing is sharded."""
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     assert mesh.init_from_env("cpu", None, 1) == torch.device("cpu")
     assert mesh.init_from_env("cpu", 1, 1) == torch.device("cpu")
-    with pytest.raises(ValueError, match="mesh_dp"):
+    with pytest.raises(ValueError, match="mesh_dp=2"):
         mesh.init_from_env("cpu", 2, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="mesh_tp=2 needs 2 processes but the job has 1"):
         mesh.init_from_env("cpu", None, 2)
-    assert mesh.local_rows(GB) is None and mesh.world_size() == 1
+    assert mesh.local_rows(GB) is None and mesh.world_size() == 1 and mesh.tp_size() == 1

@@ -24,6 +24,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from threadpoolctl import threadpool_limits
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
@@ -58,6 +59,17 @@ _COND = dict(rate_factors=[2, 4], n_channels=8, n_mels=16, n_mel_oversample=4,
              use_weight_norm=True)
 # ConvBlock calls per enhance: 6 per score pass, 10 in the conditioner
 CHAIN_CALLS = 6 * N_STEPS + 10
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: these small tensors gain nothing from more, and
+    more oversubscribe the cores the other test workers use."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpool_limits(1):  # numpy's BLAS too
+        yield
+    torch.set_num_threads(n)
 
 
 def _universe_kwargs(edm):

@@ -8,6 +8,7 @@ JAX param tree and reach the port through ``from_jax_params``.  Bound: 1e-5.
 """
 import numpy as np
 import pytest
+from threadpoolctl import threadpool_limits
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
@@ -41,6 +42,17 @@ from open_universe_tpu_torch.utils import stats as pstats  # noqa: E402
 from open_universe_tpu_torch.utils.norm import normalize_batch  # noqa: E402
 
 TOL = 1e-5
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: these small tensors gain nothing from more, and
+    more oversubscribe the cores the other test workers use."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpool_limits(1):  # numpy's BLAS too
+        yield
+    torch.set_num_threads(n)
 
 
 def _np(x):

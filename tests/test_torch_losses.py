@@ -10,6 +10,7 @@ Weights are drawn with numpy into the JAX tree and carried over with
 """
 import numpy as np
 import pytest
+from threadpoolctl import threadpool_limits
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
@@ -42,7 +43,8 @@ LOSS_TARGET = "open_universe_tpu.losses.MultiResL1SpecLoss"
 def _one_torch_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1):  # numpy's BLAS too
+        yield
     torch.set_num_threads(n)
 
 

@@ -14,6 +14,7 @@ LayerNorm <= 1e-5 relative (of max|ref| for tensors, and for gradients);
 """
 import numpy as np
 import pytest
+from threadpoolctl import threadpool_limits
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
@@ -47,7 +48,8 @@ TOL, ENH_TOL = 1e-5, 2e-5
 def _one_torch_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1):  # numpy's BLAS too
+        yield
     torch.set_num_threads(n)
 
 

@@ -15,6 +15,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from threadpoolctl import threadpool_limits
 
 pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
@@ -40,6 +41,18 @@ ROOT = Path(__file__).resolve().parents[1]
 FS = 16000
 NUMPY_TOL = 1e-9
 LSD_TOL = 1e-5
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The metrics run on single clips: one intra-op thread for torch and
+    for numpy's BLAS (P.862's matrix products) keeps them from
+    oversubscribing the cores the other test workers use."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpool_limits(1):
+        yield
+    torch.set_num_threads(n)
 
 
 def speech_like(seconds, seed, snr_noise=0.03):

@@ -7,6 +7,7 @@ C < 128).  ``enhance`` through it against JAX's packed ``enhance`` is in
 """
 import numpy as np
 import pytest
+from threadpoolctl import threadpool_limits
 
 jax = pytest.importorskip("jax")
 import torch  # noqa: E402
@@ -22,6 +23,17 @@ from open_universe_tpu_torch.ops.kernels import conv_block  # noqa: E402
 from open_universe_tpu_torch.utils.convert import fold_weight_norm  # noqa: E402
 
 TOL = 2e-5
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: these small tensors gain nothing from more, and
+    more oversubscribe the cores the other test workers use."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpool_limits(1):  # numpy's BLAS too
+        yield
+    torch.set_num_threads(n)
 
 
 def _draw(rng, *shape, scale=1.0):

@@ -17,6 +17,7 @@ import wave
 
 import numpy as np
 import pytest
+from threadpoolctl import threadpool_limits
 import yaml
 
 jax = pytest.importorskip("jax")
@@ -69,6 +70,17 @@ SERVE_CFG = {
     "condition_model": {
         "_target_": "open_universe_tpu.networks.universe.ConditionerNetwork", **_COND},
 }
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: these small tensors gain nothing from more, and
+    more oversubscribe the cores the other test workers use."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpool_limits(1):  # numpy's BLAS too
+        yield
+    torch.set_num_threads(n)
 
 
 def _wav_bytes(x, fs=FS):

@@ -18,6 +18,7 @@ import sys
 
 import numpy as np
 import pytest
+from threadpoolctl import threadpool_limits
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
@@ -150,7 +151,8 @@ def _one_torch_thread():
     keeps them from oversubscribing the cores the other test workers use."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1):  # numpy's BLAS too
+        yield
     torch.set_num_threads(n)
 
 
@@ -175,7 +177,8 @@ def gan_run():
     tx_disc = optax.chain(_capture(), joptim.adamw(
         _build_schedule(sch["discriminator"], 2e-4, MAX_STEPS, gan_role="discriminator"),
         betas=(0.8, 0.99), weight_decay=0.01))
-    state0 = init_train_state(jm, params, tx, disc_tx=tx_disc)
+    # one compiled init, not ~2600 eagerly compiled ops
+    state0 = jax.jit(lambda p: init_train_state(jm, p, tx, disc_tx=tx_disc))(params)
     step = jax.jit(make_gan_train_step(jm, tx, tx_disc,
                                        grad_clip_vals=cfg["optimizer"]["grad_clip_vals"]))
     rng = np.random.default_rng(1)

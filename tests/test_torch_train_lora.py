@@ -17,6 +17,7 @@ import json
 
 import numpy as np
 import pytest
+from threadpoolctl import threadpool_limits
 import torch
 
 from open_universe_tpu_torch.bin import enhance as port_enhance
@@ -49,7 +50,8 @@ def _has_lora(module):
 def _one_torch_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1):  # numpy's BLAS too
+        yield
     torch.set_num_threads(n)
 
 

@@ -13,6 +13,7 @@ the sampler-golden bound of PARITY.md.
 """
 import numpy as np
 import pytest
+from threadpoolctl import threadpool_limits
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
@@ -42,6 +43,17 @@ SPEC = {"transform_type": "exponent", "abs_exponent": 0.5, "factor": 0.3}
 _NET = dict(rate_factors=[2, 2], n_channels=8, use_weight_norm=False)
 _SCORE = dict(_NET, noise_cond_dim=32, input_channels=8, output_channels=8)
 _COND = dict(_NET, n_mels=16, n_mel_oversample=4, input_channels=8)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: these small tensors gain nothing from more, and
+    more oversubscribe the cores the other test workers use."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpool_limits(1):  # numpy's BLAS too
+        yield
+    torch.set_num_threads(n)
 
 
 def _close(a, b, tol=TOL):

@@ -20,6 +20,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from threadpoolctl import threadpool_limits
 
 jax = pytest.importorskip("jax")
 import optax  # noqa: E402
@@ -93,7 +94,8 @@ def port_model(cfg, params):
 def _one_torch_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1):  # numpy's BLAS too
+        yield
     torch.set_num_threads(n)
 
 

@@ -20,6 +20,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from threadpoolctl import threadpool_limits
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
@@ -125,9 +126,12 @@ def port_trainer(cfg, run_dir, params=None, shadow=None, **kw):
 
 @pytest.fixture(scope="module", autouse=True)
 def _one_torch_thread():
+    """One intra-op thread for torch and for numpy's BLAS (validation's
+    P.862): more oversubscribe the cores the other test workers use."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1):
+        yield
     torch.set_num_threads(n)
 
 
@@ -141,8 +145,13 @@ def runs(tmp_path_factory):
     jm = jregistry.instantiate(jcfg["model"])
     params = jax.tree_util.tree_map(np.asarray, draw_params(jm, seed=5))
     jm.init = lambda key: params  # the numpy weights, without JAX's eager init
-    jt = jtrainer.Trainer(jm, jregistry.instantiate(jcfg["datamodule"]), tmp / "jax",
-                          max_steps=10, mesh=make_mesh(dp=1), seed=0)
+    with pytest.MonkeyPatch.context() as mp:
+        # validate and test read the weights and the EMA shadow only: the
+        # optimizers' eager init (~2600 ops, each compiled) is skipped
+        mp.setattr(jtrainer, "init_train_state",
+                   lambda model, p, tx, **kw: {"params": p, "step": jnp.zeros((), jnp.int32)})
+        jt = jtrainer.Trainer(jm, jregistry.instantiate(jcfg["datamodule"]), tmp / "jax",
+                              max_steps=10, mesh=make_mesh(dp=1), seed=0)
     rng = np.random.default_rng(6)
     shadow = {k: jax.tree_util.tree_map(
         lambda v: (v * (1.0 + 0.05 * rng.standard_normal(v.shape))).astype(np.float32),

@@ -1707,7 +1707,7 @@ def phase_validation():
     val_rows = [r for r in rows if "val/score" in r]
     for r in val_rows:
         log(f"[val] step {r['step']}: " + ", ".join(f"{k} {r[k]:.4f}" for k in VAL_KEYS)
-            + f"; wall {r['perf/val_wall_s']:.2f} s: model passes {r['perf/val_device_s']:.2f}"
+            + f"; wall {r['perf/val_wall_s']:.2f} s: model passes {r['perf/val_model_s']:.2f}"
             f" s (enhance {r['perf/val_enhance_s']:.2f} s), host metrics (PESQ, LSD's "
             f"copy) {r['perf/val_metrics_s']:.2f} s")
     if [r["step"] for r in val_rows] != list(range(VAL_EVERY, VAL_STEPS + 1, VAL_EVERY)) or any(
@@ -1812,7 +1812,7 @@ def phase_validation():
     timing = {k: float(np.median([c["timing"][k] for c in vals])) for k in vals[0]["timing"]}
     log(f"[val] {card_line()}: a validation of {VAL_PAIRS} clips takes "
         f"{timing['perf/val_wall_s']:.2f} s (median of {len(vals)}): model passes "
-        f"{timing['perf/val_device_s']:.2f} s (enhance {timing['perf/val_enhance_s']:.2f} s), "
+        f"{timing['perf/val_model_s']:.2f} s (enhance {timing['perf/val_enhance_s']:.2f} s), "
         f"host metrics {timing['perf/val_metrics_s']:.2f} s; "
         f"the test of {TEST_PAIRS} clips {calls[-1]['wall_s']:.2f} s; the first run "
         f"{first_s:.1f} s, the resumed one {resume_s:.1f} s")

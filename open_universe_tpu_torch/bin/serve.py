@@ -16,18 +16,27 @@ API:
                   input sample rate and channel count; every channel is one
                   micro-batch row.  A body that does not decode answers 400.
   GET  /healthz   liveness and model metadata, JSON
-  GET  /stats     request, batch and device-time counters, JSON
+  GET  /stats     request, batch and time counters, JSON: seconds summed
+                  over clips waiting in the queue (``queue_wait_seconds``),
+                  over collections forming batches (``collect_seconds``)
+                  and over the worker's ``enhance`` calls, copy back
+                  included (``call_seconds``; ``device_seconds`` is the
+                  same host time under its older name)
 
 All device work runs on one worker thread; request threads only decode and
 encode audio.  The sampler noise comes from one ``torch.Generator`` on the
 device, seeded by ``--seed`` and advanced by each batch, so a served result
 is reproducible.  ``precompile(seconds)`` runs the (bucket, rows) grid once
 before traffic (the kernels' build, cuDNN's algorithm choice) with a
-generator of its own.
+generator of its own.  While a profiler records on the worker, its spans
+(``utils/spans.py``) are ``serve.collect`` (a batch's formation),
+``serve.bucket`` (one bucket's call, with the ids of the clips it serves)
+and ``serve.copy_back`` (the result's copy to the host).
 """
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import queue
 import sys
@@ -45,6 +54,7 @@ import torch
 from ..data.audio import load_audio, resample_audio, save_audio
 from ..inference.model_loader import DEFAULT_MODEL, load_model
 from ..inference.signature_to_parser import parse_with_enhance_args
+from ..utils import spans
 
 DEFAULT_SEED = 1028282  # reference bin/enhance.py:112
 
@@ -60,6 +70,8 @@ def _sniff_suffix(body: bytes) -> str:
 @dataclass
 class _Job:
     audio: np.ndarray          # one channel, f32 at model fs
+    id: int = 0                # given at submit
+    submitted: float = 0.0     # time.monotonic() at submit
     done: threading.Event = field(default_factory=threading.Event)
     result: Optional[np.ndarray] = None
     error: Optional[str] = None
@@ -98,9 +110,11 @@ class EnhanceService:
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.enhance_kwargs = dict(enhance_kwargs or {})
         self._q: "queue.Queue" = queue.Queue()
+        self._ids = itertools.count(1)
         self.stats = {"requests": 0, "batches": 0, "clips": 0,
                       "audio_seconds": 0.0, "device_seconds": 0.0,
-                      "errors": 0}
+                      "queue_wait_seconds": 0.0, "collect_seconds": 0.0,
+                      "call_seconds": 0.0, "errors": 0}
         self._lock = threading.Lock()
         self._stop = threading.Event()
         self._worker = threading.Thread(target=self._run, daemon=True,
@@ -111,11 +125,12 @@ class EnhanceService:
         """model.enhance on a (rows, T) float32 batch; returns it on the host."""
         mix = torch.as_tensor(batch, device=self.device)
         out = self.model.enhance(mix, generator=generator, **self.enhance_kwargs)
-        return out.float().cpu().numpy()
+        with spans.span("serve.copy_back"):
+            return out.float().cpu().numpy()
 
     # -------------------------------------------------------------- client
     def submit(self, audio: np.ndarray) -> _Job:
-        job = _Job(audio=audio)
+        job = _Job(audio=audio, id=next(self._ids), submitted=time.monotonic())
         if self._stop.is_set():
             job.error = "server shutting down"
             job.done.set()
@@ -176,23 +191,35 @@ class EnhanceService:
 
     # -------------------------------------------------------------- worker
     def _collect(self):
-        """One blocking get, then drain for up to window_s or max_batch."""
+        """One blocking get, then drain for up to window_s or max_batch.
+        Counts the clips' time in the queue and, for a collection that holds
+        one, the collection's time from its first job."""
         job = self._q.get()
         if job is None:
             return []
-        jobs = [job]
-        deadline = time.monotonic() + self.window_s
-        while len(jobs) < self.max_batch:
-            left = deadline - time.monotonic()
-            if left <= 0:
-                break
-            try:
-                j = self._q.get(timeout=left)
-            except queue.Empty:
-                break
-            if j is None:
-                break
-            jobs.append(j)
+        start = time.monotonic()
+        jobs, waited = [job], []
+        with spans.span("serve.collect"):
+            deadline = start + self.window_s
+            while len(jobs) < self.max_batch:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    break
+                try:
+                    j = self._q.get(timeout=left)
+                except queue.Empty:
+                    break
+                if j is None:
+                    break
+                if isinstance(j, _Job):
+                    waited.append(time.monotonic() - j.submitted)
+                jobs.append(j)
+        if isinstance(job, _Job):
+            waited.append(start - job.submitted)
+        if waited:
+            with self._lock:
+                self.stats["queue_wait_seconds"] += sum(waited)
+                self.stats["collect_seconds"] += time.monotonic() - start
         return jobs
 
     def _run(self):
@@ -229,17 +256,21 @@ class EnhanceService:
         rows = 1
         while rows < len(group):
             rows *= 2
-        batch = np.zeros((min(rows, self.max_batch), bucket), np.float32)
-        for i, j in enumerate(group):
-            batch[i, : len(j.audio)] = j.audio
-        t0 = time.perf_counter()
-        enh = self.enhance(batch, self.generator)
-        dt = time.perf_counter() - t0
+        rows = min(rows, self.max_batch)
+        with spans.span("serve.bucket", rows=rows, bucket=bucket,
+                        requests=[j.id for j in group]):
+            batch = np.zeros((rows, bucket), np.float32)
+            for i, j in enumerate(group):
+                batch[i, : len(j.audio)] = j.audio
+            t0 = time.perf_counter()
+            enh = self.enhance(batch, self.generator)
+            dt = time.perf_counter() - t0
         with self._lock:
             self.stats["batches"] += 1
             self.stats["clips"] += len(group)
             self.stats["audio_seconds"] += sum(
                 len(j.audio) for j in group) / self.model.fs
+            self.stats["call_seconds"] += dt
             self.stats["device_seconds"] += dt
         for i, j in enumerate(group):
             j.result = enh[i, : len(j.audio)]
@@ -280,7 +311,7 @@ def make_handler(service: EnhanceService, model_name: str,
                     s = dict(service.stats)
                 s["mean_batch"] = s["clips"] / max(s["batches"], 1)
                 s["device_realtime_factor"] = (
-                    s["audio_seconds"] / max(s["device_seconds"], 1e-9))
+                    s["audio_seconds"] / max(s["call_seconds"], 1e-9))
                 self._json(200, s)
             else:
                 self._json(404, {"error": "not found"})

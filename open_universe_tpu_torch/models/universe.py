@@ -38,6 +38,7 @@ from __future__ import annotations
 import math
 from typing import Any, Dict, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -45,6 +46,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import kernels
 from ..parallel import mesh
+from ..utils import spans
 from ..utils.norm import as_batch, clip_protect, like_input, normalize_batch, rms
 from ..utils.params import at_least_f32
 from ..utils.random import center_truncated_normal
@@ -480,8 +482,17 @@ class Universe(nn.Module):
         the initial draw, one per sampler step (n_steps - 1 - warm_start),
         then with ``target`` one per probe call (n_steps - warm_start).
         With ``use_aux_signal`` there are none.
+
+        While a profiler records, the call is the span ``enhance`` (rows
+        and length of ``mix``, n_steps), the conditioner's pass
+        ``enhance.condition`` and each score pass ``enhance.score`` (its
+        step): ``utils/spans.py``.
         """
-        with kernels.inference_scope():
+        shape = np.shape(mix)
+        with kernels.inference_scope(), spans.span(
+                "enhance", rows=shape[0] if len(shape) > 1 else 1,
+                T=shape[1] if len(shape) > 1 else shape[0],
+                n_steps=n_steps or self.diff_kwargs["n_steps"]):
             return self._enhance(
                 mix, n_steps, epsilon, target, fake_score_snr, use_aux_signal,
                 keep_rms, ensemble, ensemble_stat, warm_start, compute_dtype,
@@ -538,8 +549,9 @@ class Universe(nn.Module):
         sigma = self.get_std_dev(time).to(mix.dtype)
         bsz = mix.shape[0]
 
-        cond, aux_signal, _ = self.condition_model(mix.to(net_dtype),
-                                                   x_wav=mix_wav.to(net_dtype))
+        with spans.span("enhance.condition"):
+            cond, aux_signal, _ = self.condition_model(mix.to(net_dtype),
+                                                       x_wav=mix_wav.to(net_dtype))
         aux_signal = aux_signal.float()
 
         if use_aux_signal:
@@ -564,17 +576,19 @@ class Universe(nn.Module):
                 w = self._edm_weights(sigma)
                 noise_sig = w["noise"] * sigma
                 for i in range(n_start, n_steps - 1):
-                    net_out = self.score_model(
-                        (w["in"][i] * x).to(net_dtype),
-                        noise_sig[i].expand(bsz).to(net_dtype), cond)
+                    with spans.span("enhance.score", step=i):
+                        net_out = self.score_model(
+                            (w["in"][i] * x).to(net_dtype),
+                            noise_sig[i].expand(bsz).to(net_dtype), cond)
                     cx = 1.0 - eta + eta * w["skip"][i]
                     cn = eta * w["out"][i]
                     x = (cx * x + cn * net_out.float()
                          + (beta * sigma[i + 1]) * steps[i - n_start])
                 # final denoise: x + sigma^2*score == speech_est
-                net_out = self.score_model((w["in"][-1] * x).to(net_dtype),
-                                           noise_sig[-1].expand(bsz).to(net_dtype),
-                                           cond)
+                with spans.span("enhance.score", step=n_steps - 1):
+                    net_out = self.score_model((w["in"][-1] * x).to(net_dtype),
+                                               noise_sig[-1].expand(bsz).to(net_dtype),
+                                               cond)
                 x = w["skip"][-1] * x + w["out"][-1] * net_out.float()
             else:
                 def score_fn(x, s, probe):
@@ -593,10 +607,12 @@ class Universe(nn.Module):
 
                 for i in range(n_start, n_steps - 1):
                     j = i - n_start
-                    score = score_fn(x, sigma[i], probes[j] if probes else None)
+                    with spans.span("enhance.score", step=i):
+                        score = score_fn(x, sigma[i], probes[j] if probes else None)
                     z = steps[j] * sigma[i + 1]
                     x = x + sigma[i] ** 2 * eta * score + beta * z
-                score = score_fn(x, sigma[-1], probes[-1] if probes else None)
+                with spans.span("enhance.score", step=n_steps - 1):
+                    score = score_fn(x, sigma[-1], probes[-1] if probes else None)
                 x = x + sigma[-1] ** 2 * score
 
         x = self.unpad(self.transform(x, inv=True), pad)

@@ -26,6 +26,7 @@ from torch import nn
 from ..ops import conv as ops_conv
 from ..ops import kernels
 from ..ops.kernels import conv_block
+from ..utils import spans
 from .layers import Conv1d, ConvTranspose1d, PReLU
 from .lora import LoraLayer
 from .snake import AliasFreeSnake
@@ -259,54 +260,65 @@ class ConvBlock(nn.Module):
                 input_cond: Optional[torch.Tensor] = None,
                 res: Optional[torch.Tensor] = None,
                 length: Optional[int] = None):
-        """Returns (next-stage h, skip residual, condition output)."""
+        """Returns (next-stage h, skip residual, condition output).  While a
+        profiler records, the rate change is the span
+        ``conv_block.rate_change`` and the chain ``conv_block.chain``: the
+        kernel's launch with the copies in front of it, or the plain convs
+        (``utils/spans.py``)."""
         if self.rate_change_dir == "up":
-            if length is not None and self.rate * h.shape[1] < length:
-                h = F.pad(h, (0, 0, 0, 1))
-            h = self.rate_change_conv(h)
-            if length is not None:
-                if h.shape[1] > length:
-                    h = h[:, :length]
-                elif h.shape[1] < length:
-                    h = F.pad(h, (0, 0, 0, length - h.shape[1]))
+            with spans.span("conv_block.rate_change", C=self.out_channels, direction="up"):
+                if length is not None and self.rate * h.shape[1] < length:
+                    h = F.pad(h, (0, 0, 0, 1))
+                h = self.rate_change_conv(h)
+                if length is not None:
+                    if h.shape[1] > length:
+                        h = h[:, :length]
+                    elif h.shape[1] < length:
+                        h = F.pad(h, (0, 0, 0, length - h.shape[1]))
 
         if res is not None:
             if self.rate_change_dir == "down":
                 raise ValueError("residual input not allowed for down blocks")
             h = (h + res) * SQRT_HALF
 
-        if self._fused_eligible(h):
-            h = h.contiguous()
-            nc = None if noise_cond is None else noise_cond.contiguous()
-            ic = None if input_cond is None else input_cond.contiguous()
-            b, t, c = h.shape
-            p = max(1, 128 // c)
-            if p > 1 and b <= ROWS_MAX_BATCH and t % p == 0:
-                rows = (b, t // p, p * c)
-                v_out, cond_out = conv_block.fused_conv_chain_rows(
-                    h.view(rows), p, c, *self._chain_args(h.dtype), noise_cond=nc,
-                    input_cond_rows=None if ic is None else ic.view(rows))
-                v_out, cond_out = v_out.view(b, t, c), cond_out.view(b, t, c)
-            else:
-                v_out, cond_out = conv_block.fused_conv_chain(
-                    h, *self._chain_args(h.dtype), noise_cond=nc, input_cond=ic)
-        else:
-            cond_out = self.conv1(h)
-            if input_cond is not None:
-                if self.signal_cond_proj is None:
-                    c = (cond_out + input_cond) * SQRT_HALF
+        fused = self._fused_eligible(h)
+        t, c = h.shape[-2:]
+        p = max(1, 128 // c)
+        by_rows = fused and p > 1 and h.shape[0] <= ROWS_MAX_BATCH and t % p == 0
+        with spans.span("conv_block.chain", C=c, T=t,
+                        entry="rows" if by_rows else "main" if fused else "plain"):
+            if fused:
+                h = h.contiguous()
+                nc = None if noise_cond is None else noise_cond.contiguous()
+                ic = None if input_cond is None else input_cond.contiguous()
+                if by_rows:
+                    b = h.shape[0]
+                    rows = (b, t // p, p * c)
+                    v_out, cond_out = conv_block.fused_conv_chain_rows(
+                        h.view(rows), p, c, *self._chain_args(h.dtype), noise_cond=nc,
+                        input_cond_rows=None if ic is None else ic.view(rows))
+                    v_out, cond_out = v_out.view(b, t, c), cond_out.view(b, t, c)
                 else:
-                    c = self.signal_cond_proj(cond_out, input_cond)
+                    v_out, cond_out = conv_block.fused_conv_chain(
+                        h, *self._chain_args(h.dtype), noise_cond=nc, input_cond=ic)
             else:
-                c = cond_out
-            if noise_cond is not None:
-                c = film(c, noise_cond)
-            c = self.conv2(c)
-            c = self.conv3(c)
-            v_out = (h + c) * SQRT_HALF
+                cond_out = self.conv1(h)
+                if input_cond is not None:
+                    if self.signal_cond_proj is None:
+                        c = (cond_out + input_cond) * SQRT_HALF
+                    else:
+                        c = self.signal_cond_proj(cond_out, input_cond)
+                else:
+                    c = cond_out
+                if noise_cond is not None:
+                    c = film(c, noise_cond)
+                c = self.conv2(c)
+                c = self.conv3(c)
+                v_out = (h + c) * SQRT_HALF
 
         if self.rate_change_dir == "down":
-            r = h.shape[1] % self.rate
-            v_pad = F.pad(v_out, (0, 0, 0, self.rate - r)) if r != 0 else v_out
-            return self.rate_change_conv(v_pad), v_out, cond_out
+            with spans.span("conv_block.rate_change", C=self.in_channels, direction="down"):
+                r = h.shape[1] % self.rate
+                v_pad = F.pad(v_out, (0, 0, 0, self.rate - r)) if r != 0 else v_out
+                return self.rate_change_conv(v_pad), v_out, cond_out
         return v_out, v_out, cond_out

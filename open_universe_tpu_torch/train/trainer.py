@@ -69,7 +69,8 @@ the shards together, and rank 0 alone validates, tests and writes (full
 tensors: the checkpoint is a one-process run's); ``restore`` cuts a full
 checkpoint to the rank's slices, so a run resumes at any tp.
 ``profile_steps=(start, stop)`` traces steps start..stop-1 with
-``torch.profiler`` into ``<run>/profile`` (JAX's ``jax.profiler`` trace).
+``torch.profiler`` into ``<run>/profile`` (JAX's ``jax.profiler`` trace),
+the port's spans (``utils/spans.py``) among its host ops.
 """
 from __future__ import annotations
 
@@ -94,6 +95,7 @@ from ..models.universe_gan import UniverseGAN
 from ..models.universe_lora import UniverseLoRA
 from ..nn.layers import init_weights
 from ..parallel import mesh, tp
+from ..utils import spans
 from ..utils.convert import fold_weight_norm
 from ..utils.device import resolve_device
 from .ema import EMA
@@ -339,6 +341,9 @@ class Trainer:
         out.mkdir(parents=True, exist_ok=True)
         path = out / f"trace_rank{mesh.rank()}.json"
         prof.export_chrome_trace(str(path))
+        # the trace carries the spans as host ops; their records have no
+        # reader in training
+        spans.clear()
         log.info("profiler trace written to %s", path)
 
     # ------------------------------------------------------------------
@@ -398,7 +403,7 @@ class Trainer:
                 vals = {"": vals}
             for sub_name, v in vals.items():
                 enh_metrics.setdefault(name + sub_name, []).append(float(v))
-        timing["device_s"] += t1 - t0
+        timing["model_s"] += t1 - t0
         timing["enhance_s"] += t1 - t0
         timing["metrics_s"] += time.perf_counter() - t1
 
@@ -428,7 +433,7 @@ class Trainer:
         bin_scores = np.zeros(n_bins)
         n_batches = 0
         enh_metrics: Dict[str, list] = {}
-        timing = {"device_s": 0.0, "enhance_s": 0.0, "metrics_s": 0.0}
+        timing = {"model_s": 0.0, "enhance_s": 0.0, "metrics_s": 0.0}
 
         for bi, batch in enumerate(self.dm.val_dataloader()):
             if self.max_val_batches is not None and bi >= self.max_val_batches:
@@ -449,7 +454,7 @@ class Trainer:
                                           generator=gen, u=d.get("u"), z=d.get("z"))
                 bin_scores[i] += float(ls)
             n_batches += 1
-            timing["device_s"] += time.perf_counter() - t0
+            timing["model_s"] += time.perf_counter() - t0
 
             if bi < max_enh and self.enh_losses:
                 d = next(draws) if draws is not None else {}
@@ -494,7 +499,7 @@ class Trainer:
         loss_sums: Dict[str, float] = {}
         n_batches = 0
         enh_metrics: Dict[str, list] = {}
-        timing = {"device_s": 0.0, "enhance_s": 0.0, "metrics_s": 0.0}
+        timing = {"model_s": 0.0, "enhance_s": 0.0, "metrics_s": 0.0}
         for bi, batch in enumerate(self.dm.val_dataloader()):
             if self.max_val_batches is not None and bi >= self.max_val_batches:
                 break
@@ -508,7 +513,7 @@ class Trainer:
             for k, v in vm.items():
                 loss_sums[k] = loss_sums.get(k, 0.0) + float(v)
             n_batches += 1
-            timing["device_s"] += time.perf_counter() - t0
+            timing["model_s"] += time.perf_counter() - t0
             if bi < max_enh and self.enh_losses:
                 d = next(draws) if draws is not None else {}
                 self._enhance_and_score(model, step, bi, batch, mix, target, gen,

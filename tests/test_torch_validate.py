@@ -279,7 +279,7 @@ def test_validate_matches_jax(runs, record_property):
     record_property("diffs", {k: float(v) for k, v in diffs.items()})
     np.testing.assert_allclose(runs["pt"].pr_cum.numpy(), runs["jax_pr_cum"], rtol=REL_TOL)
     timing = runs["pt"].val_timing
-    assert timing["perf/val_wall_s"] >= timing["perf/val_device_s"] > 0
+    assert timing["perf/val_wall_s"] >= timing["perf/val_model_s"] > 0
 
 
 def test_test_matches_jax(runs, record_property):
@@ -375,7 +375,7 @@ def test_index_and_best_name_the_best_checkpoint(fitted):
     finally:
         tr.model.val_kwargs["main_loss_mode"] = "min"
     assert json.loads((ckpt_dir / "best.json").read_text())["value"] == max(val.values())
-    assert {"perf/val_wall_s", "perf/val_device_s", "perf/val_enhance_s",
+    assert {"perf/val_wall_s", "perf/val_model_s", "perf/val_enhance_s",
             "perf/val_metrics_s"} <= set(next(r for r in _rows(run) if "val/score" in r))
 
 

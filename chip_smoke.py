@@ -25,16 +25,31 @@ Phases, each of which raises (exit code != 0) on failure:
    C < 128 and through the unpacked entry at C >= 128.  Then the same
    ``enhance`` with bf16 networks must launch the bf16 route 94 times with
    the same split.  The launches are counted by (entry, route, C, T, FiLM,
-   cond).
+   cond).  The f32 run also launches the rate-change kernel
+   (``rate_change_tc.cu``) 72 times, 4 down and 4 up blocks in each of the 8
+   score passes and the conditioner, the score network's 64 with the
+   low-pass; the bf16 run launches it 0 times.
 3c. The 24 kHz model: a reference-layout checkpoint of the seeded
    ``universepp(24000)`` with ``config/model/universepp_24k.yaml``'s model
    node beside it, loaded by ``load_model`` through the port's registry
    (EMA applied, folded); ``enhance`` of 2 x 2 s at 24 kHz, 8 steps, f32,
    through the kernel and the unfused chain on the same noise: they agree
    within 1e-4, with 94 launches at C = 48..768 (C = 48 on the rows
-   entry); one 2 s request served over HTTP (94 launches).  Then the
-   kernel, its plain version and the unfused chain alone in bf16 and f32
-   at each of its shapes at batch 128.
+   entry) and 72 rate-change launches (64 low-passed); one 2 s request
+   served over HTTP (94 and 72 launches).  Then the kernel, its plain
+   version and the unfused chain alone in bf16 and f32 at each of its
+   shapes at batch 128.
+3e. The rate-change kernel (``ops/kernels/rate_change.py``) against its
+   plain version (TF32 off, within 1e-4 of max|plain|) at each rate-change
+   shape of phases 3 and 3c at batch 128, and at each shape of an f32
+   ``enhance`` of a 1 s bucket at the server's batches 1, 2 and 16; at each
+   the kernel, its plain version and the ``PReLUConv`` module it replaces
+   (cuDNN at PyTorch's default TF32, as the server ran it) timed alone,
+   weighted by launches per ``enhance``, beside its bound (bytes at 3.35
+   TB/s, products at 3xTF32's 495 / 3 TFLOP/s).  Then one traced f32
+   ``enhance`` at batch 128 x 2 s of UNIVERSE++ and of plain UNIVERSE, with
+   the rate-change kernel and with the module (PyTorch's default TF32, as
+   the benchmark runs): device events, busy time and traced wall per call.
 4. Time ``enhance`` in bench.py's setting (bf16 networks, batch 128 x 2 s,
    8 steps, every block through the unpacked entry) with the kernel and with
    the unfused chain, and the same ``enhance`` with f32 networks (the
@@ -215,7 +230,7 @@ Phases, each of which raises (exit code != 0) on failure:
    naming the mismatch.
 
 The last two lines are a JSON object with one entry per kernel (per-enhance
-sums; each shape's numbers are on the log lines of phases 3c, 4 and 4b; the
+sums; each shape's numbers are on the log lines of phases 3c, 3e, 4 and 4b; the
 CLI's launches per run of phase 7; phase 10's to 14's launches per path) and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
 and prints no result.
@@ -245,7 +260,7 @@ BUCKET_S = 1.0  # the server's length buckets
 N_STEPS = 8
 TIMING_BATCH = 128
 SERVE_BATCH = 16
-SOURCES = ("conv_block_tc",)
+SOURCES = ("conv_block_tc", "rate_change_tc")
 # ConvBlock width -> length on a 2 s clip: 16 kHz (universepp(16000)) and
 # 24 kHz (config/model/universepp_24k.yaml)
 WIDTH_LENGTHS = {32: 32160, 64: 16080, 128: 4020, 256: 1005, 512: 201}
@@ -255,6 +270,10 @@ F32, BF16 = "f32_tensor_cores_3xtf32", "bf16_tensor_cores"  # conv_block.ROUTES'
 # ConvBlocks per enhance with 8 steps: 10 per score pass, 14 in the conditioner
 COND_BLOCKS, SCORE_BLOCKS = 14, 10
 PATH_LAUNCHES = SCORE_BLOCKS * N_STEPS + COND_BLOCKS
+# rate changes per f32 enhance: 4 down and 4 up blocks in each score pass and
+# in the conditioner; UNIVERSE++ low-passes the score network's
+RATE_LAUNCHES, RATE_LOW_PASSED = 8 * (N_STEPS + 1), 8 * N_STEPS
+SERVE_BATCHES = (1, 2, 16)  # the server's rows per call, up to max_batch 16
 PEAK_BYTES_PER_S = 3.35e12
 # f32 runs as three TF32 products per product: a third of the 495 TFLOP/s
 PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
@@ -494,10 +513,12 @@ def noise_draws(model, b, t, seed):
 
 
 def counted_enhance(model, mix, noise, dtype=None):
-    """enhance with the kernels on; its output and the launches it made."""
-    from open_universe_tpu_torch.ops.kernels import conv_block
+    """enhance with the kernels on; its output and the chain launches it
+    made (``rate_change.launches`` counts from 0 too)."""
+    from open_universe_tpu_torch.ops.kernels import conv_block, rate_change
 
     conv_block.launches.clear()
+    rate_change.launches.clear()
     out = model.enhance(mix, n_steps=N_STEPS, noise=noise, compute_dtype=dtype)
     torch.cuda.synchronize()
     return out, dict(conv_block.launches)
@@ -515,13 +536,22 @@ def unfused_enhance(model, mix, noise, dtype=None):
     return out
 
 
+def low_passed(rate_counts) -> int:
+    return sum(n for k, n in rate_counts.items() if k[-1])
+
+
 def check_path(tag, counts, widths, route, out, t):
-    """A main-path run: its output's shape and values, and its launches: one
-    per ConvBlock, all on ``route``, at every width of the model, the rows
-    entry exactly where P = 128 // C > 1 (this batch is <= 64)."""
-    launches = sum(counts.values())
+    """A main-path run of ``counted_enhance``: its output's shape and values,
+    and its launches: one per ConvBlock, all on ``route``, at every width of
+    the model, the rows entry exactly where P = 128 // C > 1 (this batch is
+    <= 64); the rate-change kernel RATE_LAUNCHES times in f32, never in
+    bf16.  Returns the rate-change launches."""
+    from open_universe_tpu_torch.ops.kernels import rate_change
+
+    launches, rate = sum(counts.values()), dict(rate_change.launches)
     log(f"[{tag}] enhance -> {tuple(out.shape)}: {launches} launches {by_entry(counts)} "
-        f"{by_route(counts)}, max|out| = {out.float().abs().max().item():.3e}")
+        f"{by_route(counts)}, {sum(rate.values())} rate-change launches "
+        f"({low_passed(rate)} low-passed), max|out| = {out.float().abs().max().item():.3e}")
     for (entry, r, c, t_c, film, cond), n in sorted(counts.items()):
         log(f"[{tag}]   {entry:22s} {r} C={c:3d} T={t_c:5d} film={film:d} cond={cond:d}: "
             f"{n} launches")
@@ -535,6 +565,9 @@ def check_path(tag, counts, widths, route, out, t):
              if (k[0] == "fused_conv_chain_rows") != (128 // k[2] > 1)]
     if wrong or len(by_entry(counts)) != 2:
         raise AssertionError(f"{tag}: launches split between the entries as {counts}")
+    if sum(rate.values()) != (RATE_LAUNCHES if route == F32 else 0):
+        raise AssertionError(f"{tag}: rate-change kernel launched as {rate}")
+    return rate
 
 
 def phase_main_path():
@@ -550,9 +583,13 @@ def phase_main_path():
     noise = noise_draws(model, 2, t, seed=2)
 
     out_k, counts = counted_enhance(model, mix, noise)
+    rate = check_path("main", counts, WIDTH_LENGTHS, F32, out_k, t)
+    if low_passed(rate) != RATE_LOW_PASSED:
+        raise AssertionError(f"main: {low_passed(rate)} rate changes low-passed, not "
+                             f"{RATE_LOW_PASSED}")
     diff = (out_k - unfused_enhance(model, mix, noise)).abs().max().item()
-    check_path("main", counts, WIDTH_LENGTHS, F32, out_k, t)
-    log(f"[main] f32: max|kernel - unfused| = {diff:.3e} (bound 1e-4)")
+    log(f"[main] f32: max|kernels - unfused| = {diff:.3e} (bound 1e-4; both kernels "
+        f"against the modules, TF32 off)")
     if not diff <= 1e-4:
         raise AssertionError(f"kernel path and unfused chain differ by {diff}")
 
@@ -561,7 +598,7 @@ def phase_main_path():
     diff_bf16 = (out_b - unfused_enhance(model, mix, noise, torch.bfloat16)).abs().max().item()
     log(f"[main bf16] max|kernel - unfused| = {diff_bf16:.3e} (no bound: bf16 "
         f"networks round at other points in the unfused chain)")
-    return model, counts, counts_bf16, dict(f32=diff, bf16=diff_bf16)
+    return model, counts, counts_bf16, dict(f32=diff, bf16=diff_bf16), rate
 
 
 def phase_24k():
@@ -571,7 +608,7 @@ def phase_24k():
     over HTTP; then each launched shape alone at batch 128 in bf16."""
     from open_universe_tpu_torch.bin.serve import make_server
     from open_universe_tpu_torch.inference.model_loader import load_model
-    from open_universe_tpu_torch.ops.kernels import conv_block
+    from open_universe_tpu_torch.ops.kernels import conv_block, rate_change
 
     with tempfile.TemporaryDirectory() as tmp:
         model = load_model(write_checkpoint(tmp, 24000, "universepp_24k.yaml"),
@@ -582,8 +619,10 @@ def phase_24k():
     mix = torch.randn(2, t, generator=g, device=DEVICE) * 0.05
     noise = noise_draws(model, 2, t, seed=12)
     out_k, counts = counted_enhance(model, mix, noise)
+    rate = check_path("24k", counts, WIDTH_LENGTHS_24K, F32, out_k, t)
+    if low_passed(rate) != RATE_LOW_PASSED:
+        raise AssertionError(f"24k: {low_passed(rate)} rate changes low-passed")
     diff = (out_k - unfused_enhance(model, mix, noise)).abs().max().item()
-    check_path("24k", counts, WIDTH_LENGTHS_24K, F32, out_k, t)
     log(f"[24k] universepp_24k.yaml checkpoint via load_model, fs {fs}, tot_ds "
         f"{model.tot_ds}: max|kernel - unfused| = {diff:.3e} (bound 1e-4)")
     if not diff <= 1e-4:
@@ -596,26 +635,167 @@ def phase_24k():
     threading.Thread(target=server.serve_forever, daemon=True).start()
     try:
         conv_block.launches.clear()
+        rate_change.launches.clear()
         x = (0.05 * np.random.default_rng(13).standard_normal(t)).astype(np.float32)
         t0 = time.perf_counter()
         status, body = post(f"http://127.0.0.1:{server.server_address[1]}", wav_bytes(x, fs))
         served_ms = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
         served = dict(conv_block.launches)
+        served_rate = sum(rate_change.launches.values())
     finally:
         server.shutdown()
         service.close()
     out = wav_decode(body) if status == 200 else None
     log(f"[24k] one 2 s request served: status {status}, {served_ms:.1f} ms, launches "
-        f"{by_entry(served)} {by_route(served)}")
+        f"{by_entry(served)} {by_route(served)}, {served_rate} rate-change launches")
     if out is None or out.shape != (1, t) or not np.isfinite(out).all():
         raise AssertionError(f"24 kHz request answered {status}: {body[:200]}")
     if sum(served.values()) != PATH_LAUNCHES or set(by_route(served)) != {F32}:
         raise AssertionError(f"24 kHz request launched the kernel as {served}")
+    if served_rate != RATE_LAUNCHES:
+        raise AssertionError(f"24 kHz request: {served_rate} rate-change launches")
     del model, server, service
     return dict(kernel_vs_unfused=diff, launches=by_entry(counts),
-                served_ms=served_ms, served_launches=by_entry(served)), \
-        time_shapes(by_shape(counts), TIMING_BATCH, tag="24k")
+                rate_change_launches=sum(rate.values()), served_ms=served_ms,
+                served_launches=by_entry(served), served_rate_change_launches=served_rate), \
+        time_shapes(by_shape(counts), TIMING_BATCH, tag="24k"), rate
+
+
+def rate_module(direction, cin, cout, r, aa, seed):
+    """A folded rate-change PReLUConv on the card (slope 0.2, a nonzero
+    bias) and the rate-change kernel's arguments for it."""
+    from open_universe_tpu_torch.nn.blocks import PReLUConv
+    from open_universe_tpu_torch.nn.layers import init_weights
+
+    conv = PReLUConv(cin, cout, r, stride=r, use_transpose=direction == "up", antialiasing=aa)
+    init_weights(conv, seed)
+    with torch.no_grad():
+        conv.prelu.weight.fill_(0.2)
+        if conv.manual_bias:
+            conv.bias.uniform_(-0.5, 0.5, generator=torch.Generator().manual_seed(seed))
+    conv = conv.to(DEVICE).eval()
+    return conv, (conv.conv.weight, conv.bias if conv.manual_bias else conv.conv.bias,
+                  conv.prelu.weight, r, direction,
+                  conv.low_pass_filter.weights if aa else None)
+
+
+def rate_shapes(tag, rate_counts, batch):
+    """The rate-change kernel at each (direction, Cin, Cout, r, T, low-pass)
+    of rate_counts (one enhance's launches) at this batch: against its plain
+    version (TF32 off, within TOL of max|plain|), then the kernel, the plain
+    version and the PReLUConv module alone (cuDNN at PyTorch's default
+    TF32), with its bound; one dict per shape, and their sums per enhance."""
+    from open_universe_tpu_torch.ops.kernels import rate_change
+
+    shapes = []
+    for (direction, _, cin, cout, r, t, aa), n in sorted(rate_counts.items()):
+        conv, args = rate_module(direction, cin, cout, r, aa, seed=cin + r)
+        g = torch.Generator(device=DEVICE).manual_seed(t + batch)
+        x = torch.randn(batch, t, cin, generator=g, device=DEVICE)
+        with torch.no_grad():
+            got = rate_change.rate_change(x, *args)
+            ref = rate_change.rate_change_reference(x, *args)
+            err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+            if not (got.is_contiguous() and math.isfinite(err) and err <= TOL[torch.float32] * scale):
+                raise AssertionError(f"[{tag}] rate change {direction} {cin}->{cout} r={r} "
+                                     f"T={t} B={batch} aa={aa:d}: max|d| {err:.3e} of "
+                                     f"max|ref| {scale:.3e}")
+            ms = cuda_ms(lambda: rate_change.rate_change(x, *args), 20)
+            plain_ms = cuda_ms(lambda: rate_change.rate_change_reference(x, *args), 3)
+            tf32_flags(True)
+            try:
+                module_ms = cuda_ms(lambda: conv(x), 10)
+            finally:
+                tf32_flags(False)
+        moved = (x.numel() + got.numel() + 2 * args[0].numel() + cout) * 4
+        t_bytes = moved / PEAK_BYTES_PER_S * 1e3
+        t_ops = 2.0 * batch * t * cin * cout * (r if direction == "up" else 1) \
+            / PEAK_FLOPS[torch.float32] * 1e3
+        bound = max(t_bytes, t_ops)
+        shapes.append(dict(direction=direction, Cin=cin, Cout=cout, r=r, T=t, low_pass=aa,
+                           launches=n, max_abs_err=err, max_rel_err=err / scale, ms=ms,
+                           plain_ms=plain_ms, module_ms=module_ms, bytes_ms=t_bytes,
+                           ops_ms=t_ops, bound_share=bound / ms))
+        log(f"[{tag}] {direction:4s} {cin:3d}->{cout:3d} r={r} T={t:5d} aa={aa:d} B={batch} "
+            f"x{n}: max|d| {err / scale:.2e} max|ref|; kernel {ms:.4f} ms ({bound / ms:.3f} of "
+            f"bound {bound:.4f} ms by {'bytes' if t_bytes >= t_ops else 'operations'}), "
+            f"plain {plain_ms:.4f}, module {module_ms:.4f}")
+        del conv, args, x, got, ref
+    total = {k: sum(s[k] * s["launches"] for s in shapes)
+             for k in ("ms", "plain_ms", "module_ms")}
+    total["bound_ms"] = sum(max(s["bytes_ms"], s["ops_ms"]) * s["launches"] for s in shapes)
+    total["max_abs_err"] = max(s["max_abs_err"] for s in shapes)
+    total["max_rel_err"] = max(s["max_rel_err"] for s in shapes)
+    log(f"[{tag}] per enhance at batch {batch}: kernel {total['ms']:.3f} ms, module "
+        f"{total['module_ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, bound "
+        f"{total['bound_ms']:.3f} ms")
+    return shapes, total
+
+
+def phase_rate_change(model, rate16, rate24):
+    """3e: the rate-change kernel against its plain version and timed beside
+    the module it replaces at each shape of phases 3 (16 kHz) and 3c (24
+    kHz) at batch 128 and of a 1 s bucket at the server's batches; then
+    traced f32 enhances at batch 128 with the kernel and with the module."""
+    from open_universe_tpu_torch.models.presets import universe_original
+    from open_universe_tpu_torch.ops.kernels import rate_change
+    from open_universe_tpu_torch.utils.convert import fold_weight_norm
+
+    result = {"batch128_16k": rate_shapes("rate 16k", rate16, TIMING_BATCH)[1],
+              "batch128_24k": rate_shapes("rate 24k", rate24, TIMING_BATCH)[1]}
+    t = int(BUCKET_S * FS)
+    g = torch.Generator(device=DEVICE).manual_seed(21)
+    mix = torch.randn(1, t, generator=g, device=DEVICE) * 0.05
+    counted_enhance(model, mix, noise_draws(model, 1, t, seed=22))
+    bucket = dict(rate_change.launches)
+    if sum(bucket.values()) != RATE_LAUNCHES:
+        raise AssertionError(f"1 s bucket: rate-change launches {bucket}")
+    for batch in SERVE_BATCHES:
+        result[f"bucket1s_batch{batch}"] = rate_shapes(f"rate 1s B{batch}", bucket, batch)[1]
+
+    # one enhance each way at batch 128 x 2 s in f32 with PyTorch's default
+    # TF32, as the benchmark's cells run it; "module": takes() refuses all
+    t = int(CLIP_S * FS)
+    g = torch.Generator(device=DEVICE).manual_seed(23)
+    mix = torch.randn(TIMING_BATCH, t, generator=g, device=DEVICE) * 0.05
+    takes = rate_change.takes
+    profiles = {}
+    tf32_flags(True)
+    try:
+        for name, net in (("universepp", model),
+                          ("universe_original",
+                           fold_weight_norm(universe_original(FS, device=DEVICE, seed=0)).eval())):
+            noise = noise_draws(net, TIMING_BATCH, t, seed=24)
+            for arm in ("kernel", "module"):
+                if arm == "module":
+                    rate_change.takes = lambda *a: False
+                try:
+                    def run():
+                        net.enhance(mix, n_steps=N_STEPS, noise=noise)
+                    run()  # warm-up
+                    torch.cuda.synchronize()
+                    rate_change.launches.clear()
+                    prof = device_profile(f"[rate profile] {name} {arm}", run)
+                    prof["rate_change_launches"] = sum(rate_change.launches.values())
+                finally:
+                    rate_change.takes = takes
+                want = RATE_LAUNCHES if arm == "kernel" else 0
+                if prof["rate_change_launches"] != want:
+                    raise AssertionError(f"{name} {arm}: {prof['rate_change_launches']} "
+                                         f"rate-change launches, not {want}")
+                profiles[f"{name}_{arm}"] = prof
+            del net, noise
+    finally:
+        tf32_flags(False)
+    for name in ("universepp", "universe_original"):
+        k, m = profiles[f"{name}_kernel"], profiles[f"{name}_module"]
+        log(f"[rate profile] {name} f32 batch {TIMING_BATCH}: device events per call "
+            f"{m['device_kernels']} -> {k['device_kernels']}, busy {m['device_busy_ms']:.1f} "
+            f"-> {k['device_busy_ms']:.1f} ms, traced wall {m['traced_wall_ms']:.1f} -> "
+            f"{k['traced_wall_ms']:.1f} ms (module -> kernel)")
+    result["profiles"] = profiles
+    return result
 
 
 def timed_enhance(model, mix, noise, fused: bool, dtype=torch.bfloat16, runs: int = 5):
@@ -2440,8 +2620,10 @@ def phase_lora_checkpoint(ckpt: str):
     model's enhance on the same noise (f32: <= 1e-4 of max|ref|; bf16 logged:
     the two round the weights at other points); audio-s/s at batch 128 x
     2 s, merged (kernel) against adapters (unfused), bf16 and f32 (median of
-    3); one file through the enhance CLI."""
+    3); one file through the enhance CLI.  The adapter model launches
+    neither kernel."""
     from open_universe_tpu_torch.inference.model_loader import load_model
+    from open_universe_tpu_torch.ops.kernels import rate_change
 
     model = load_model(ckpt, device=DEVICE)
     t = int(CLIP_S * FS)
@@ -2450,10 +2632,12 @@ def phase_lora_checkpoint(ckpt: str):
     noise = noise_draws(model.model, 2, t, seed=72)
     out = {"type": type(model).__name__}
     adapter, counts = counted_enhance(model, mix, noise)
+    rate = dict(rate_change.launches)
     log(f"[lora ckpt] load_model({os.path.basename(ckpt)}) -> {out['type']}: enhance of "
-        f"2 x 2 s with the adapters: {sum(counts.values())} launches")
-    if counts or out["type"] != "UniverseLoRA":
-        raise AssertionError(f"LoRA checkpoint: {out['type']}, launches {counts}")
+        f"2 x 2 s with the adapters: {sum(counts.values())} launches, "
+        f"{sum(rate.values())} rate-change launches")
+    if counts or rate or out["type"] != "UniverseLoRA":
+        raise AssertionError(f"LoRA checkpoint: {out['type']}, launches {counts} {rate}")
     merged = model.merge_lora()
     for tag, dtype, route in (("f32", None, F32), ("bf16", torch.bfloat16, BF16)):
         o, counts = counted_enhance(merged, mix, noise, dtype)
@@ -3574,12 +3758,14 @@ def main() -> int:
     worst = phase_kernel_vs_plain()
     worst_rows = phase_kernel_vs_plain(rows=True)
     lap("2 kernel vs plain")
-    model, counts, counts_bf16, path_diff = phase_main_path()
+    model, counts, counts_bf16, path_diff, rate16 = phase_main_path()
     lap("3 main path")
     step0 = phase_step0(model)
     lap("3d step 0")
-    hz24, shapes_24k = phase_24k()
+    hz24, shapes_24k, rate24 = phase_24k()
     lap("3c 24 kHz")
+    rate = phase_rate_change(model, rate16, rate24)
+    lap("3e rate change")
     main_counts = {**counts, **counts_bf16}  # keys differ by route
     entries = by_entry(main_counts)
     # at batch 128 every block takes the unpacked entry, at these shapes
@@ -3788,6 +3974,26 @@ def main() -> int:
             "per_step": tensor_parallel["launches_per_step"],
             "checkpoint_enhance": tensor_parallel["trained_checkpoint_enhance"][
                 "launches"].get("fused_conv_chain_rows", 0)},
+    }, {
+        "name": "rate_change",
+        "route": "cuda",
+        "source": "open_universe_tpu_torch/csrc/rate_change_tc.cu",
+        # port-only: the JAX package runs XLA's strided and transposed convs
+        "replaces": None,
+        # launches in phase 3's f32 enhance (batch 2 x 2 s; its bf16 run: 0)
+        "launches": sum(rate16.values()),
+        "low_passed": low_passed(rate16),
+        # phase 3e, per enhance of batch 128 x 2 s at 16 kHz: each shape alone
+        # times its launches (ms; plain_ms, the plain version; module_ms, the
+        # PReLUConv it replaces at PyTorch's default TF32; bound_ms, bytes at
+        # 3.35 TB/s or products at 495 / 3 TFLOP/s), and the largest error
+        # against the plain version (TF32 off)
+        **rate["batch128_16k"],
+        "universepp_24k": rate["batch128_24k"],
+        # the shapes of a 1 s bucket at the server's batches
+        "serving": {k: v for k, v in rate.items() if k.startswith("bucket1s")},
+        # one traced f32 enhance at batch 128, with the kernel and the module
+        "enhance_profiles": rate["profiles"],
     }]}
     for tag, sh in (("batch 128, 16 kHz", shapes), ("batch 128, 24 kHz", shapes_24k),
                     ("rows, batch 16", rows_shapes)):

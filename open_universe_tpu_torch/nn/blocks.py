@@ -4,7 +4,9 @@ The PReLU -> low-pass -> strided-conv unit, the UNIVERSE ConvBlock (paper
 App. D) with FiLM noise conditioning and residual/condition outputs, and the
 binomial anti-aliasing filter (JAX package ``nn/blocks.py``).  An eligible
 ConvBlock runs its conv chain as one fused kernel
-(``ops/kernels/conv_block.py``).
+(``ops/kernels/conv_block.py``), and its rate change (PReLU, the strided or
+transposed conv, and UNIVERSE++'s low-pass) as another
+(``ops/kernels/rate_change.py``).
 
 The JAX package runs batches of up to 64 rows lane-packed, where a block of
 C < 128 channels takes the kernel's rows entry on (B, T/P, P*C),
@@ -25,7 +27,7 @@ from torch import nn
 
 from ..ops import conv as ops_conv
 from ..ops import kernels
-from ..ops.kernels import conv_block
+from ..ops.kernels import conv_block, rate_change
 from ..utils import spans
 from .layers import Conv1d, ConvTranspose1d, PReLU
 from .lora import LoraLayer
@@ -203,21 +205,17 @@ class ConvBlock(nn.Module):
         return [p for c in (self.conv1, self.conv2, self.conv3)
                 for p in (c.conv.weight, c.conv.bias, c.prelu.weight)]
 
-    def _fused_eligible(self, h: Optional[torch.Tensor] = None) -> bool:
-        """The fused kernel takes the plain-PReLU inference configuration:
-        kernels enabled, inference (``inference_scope`` or no autograd),
-        folded weights without LoRA adapters, one PReLU slope per conv, no
-        LinearProj.  It has no
-        backward, so with autograd on nothing that needs a gradient (``h``
-        or a chain parameter) may reach it.  Given ``h`` on the card, its
-        dtype, width and batch must be ones the kernel takes (the JAX
-        package's ``fused_conv_chain`` returns None for the rest); the plain
-        version a CPU tensor runs takes any."""
+    @staticmethod
+    def _kernel_ready(convs, h: Optional[torch.Tensor]) -> bool:
+        """The kernels take the plain-PReLU inference configuration of the
+        PReLUConvs ``convs``: kernels enabled, inference (``inference_scope``
+        or no autograd), folded weights without LoRA adapters or
+        tensor-parallel shards, one PReLU slope per conv.  They have no
+        backward, so with autograd on nothing that needs a gradient (``h`` or
+        a parameter of ``convs``) may reach them."""
         if not kernels.enabled() or not kernels.in_inference():
             return False
-        if self.signal_cond_proj is not None:
-            return False
-        for conv in (self.conv1, self.conv2, self.conv3):
+        for conv in convs:
             # a LoRA adapter, in any autograd state (JAX nn/blocks.py:222-224):
             # the kernel would read the base weight without the update
             if isinstance(conv.conv, LoraLayer):
@@ -229,15 +227,43 @@ class ConvBlock(nn.Module):
                 return False
             if conv.prelu.num_parameters != 1:
                 return False
-        if torch.is_grad_enabled() and (
-                (h is not None and h.requires_grad)
-                or any(p.requires_grad for p in self._chain_params())):
+        return not (torch.is_grad_enabled() and (
+            (h is not None and h.requires_grad)
+            or any(p.requires_grad for c in convs for p in c.parameters())))
+
+    def _fused_eligible(self, h: Optional[torch.Tensor] = None) -> bool:
+        """The fused chain kernel takes what ``_kernel_ready`` takes, without
+        a LinearProj.  Given ``h`` on the card, its dtype, width and batch
+        must be ones the kernel takes (the JAX package's ``fused_conv_chain``
+        returns None for the rest); the plain version a CPU tensor runs
+        takes any."""
+        if self.signal_cond_proj is not None:
+            return False
+        if not self._kernel_ready((self.conv1, self.conv2, self.conv3), h):
             return False
         if h is not None and h.device.type == "cuda":
             b, t, c = h.shape
             return (h.dtype in conv_block.ROUTES and c in conv_block.WIDTHS
                     and 1 <= b <= 65535 and t >= 1)
         return True
+
+    def _rate_kernel_eligible(self, h: torch.Tensor) -> bool:
+        """The rate-change kernel takes what ``_kernel_ready`` takes, on a
+        float32 CUDA tensor of a shape ``rate_change.takes``; everything else
+        (training, bf16, the CPU, LoRA) runs the module."""
+        conv = self.rate_change_conv
+        return (self._kernel_ready((conv,), h)
+                and rate_change.takes(self.rate_change_dir, h, conv.conv.weight, self.rate))
+
+    def _rate_change(self, h: torch.Tensor, kernel: bool) -> torch.Tensor:
+        """The rate change of h: one kernel launch, or the module."""
+        conv = self.rate_change_conv
+        if not kernel:
+            return conv(h)
+        return rate_change.rate_change(
+            h.contiguous(), conv.conv.weight, conv.bias if conv.manual_bias else conv.conv.bias,
+            conv.prelu.weight, self.rate, self.rate_change_dir,
+            conv.low_pass_filter.weights if conv.antialiasing else None)
 
     def _chain_args(self, dtype) -> Tuple[torch.Tensor, ...]:
         """The kernel's weight arguments: (K, Cin, Cout) weights and biases of
@@ -262,14 +288,16 @@ class ConvBlock(nn.Module):
                 length: Optional[int] = None):
         """Returns (next-stage h, skip residual, condition output).  While a
         profiler records, the rate change is the span
-        ``conv_block.rate_change`` and the chain ``conv_block.chain``: the
-        kernel's launch with the copies in front of it, or the plain convs
-        (``utils/spans.py``)."""
+        ``conv_block.rate_change`` (its kernel's launch, or the module) and
+        the chain ``conv_block.chain``: the kernel's launch with the copies
+        in front of it, or the plain convs (``utils/spans.py``)."""
         if self.rate_change_dir == "up":
-            with spans.span("conv_block.rate_change", C=self.out_channels, direction="up"):
+            kernel = self._rate_kernel_eligible(h)
+            with spans.span("conv_block.rate_change", C=self.out_channels, direction="up",
+                            entry="kernel" if kernel else "plain"):
                 if length is not None and self.rate * h.shape[1] < length:
                     h = F.pad(h, (0, 0, 0, 1))
-                h = self.rate_change_conv(h)
+                h = self._rate_change(h, kernel)
                 if length is not None:
                     if h.shape[1] > length:
                         h = h[:, :length]
@@ -317,8 +345,10 @@ class ConvBlock(nn.Module):
                 v_out = (h + c) * SQRT_HALF
 
         if self.rate_change_dir == "down":
-            with spans.span("conv_block.rate_change", C=self.in_channels, direction="down"):
+            kernel = self._rate_kernel_eligible(v_out)
+            with spans.span("conv_block.rate_change", C=self.in_channels, direction="down",
+                            entry="kernel" if kernel else "plain"):
                 r = h.shape[1] % self.rate
-                v_pad = F.pad(v_out, (0, 0, 0, self.rate - r)) if r != 0 else v_out
-                return self.rate_change_conv(v_pad), v_out, cond_out
+                v_pad = F.pad(v_out, (0, 0, 0, self.rate - r)) if r != 0 and not kernel else v_out
+                return self._rate_change(v_pad, kernel), v_out, cond_out
         return v_out, v_out, cond_out

@@ -104,19 +104,21 @@ def mma_weights_tf32_layout(w: torch.Tensor) -> torch.Tensor:
 _MMA_LAYOUTS = {torch.bfloat16: mma_weights_layout, torch.float32: mma_weights_tf32_layout}
 
 
-def mma_weights(w: torch.Tensor) -> torch.Tensor:
-    """The fragment-ordered weights of w's dtype (``mma_weights_layout`` for
-    bfloat16, ``mma_weights_tf32_layout`` for float32), made once per
-    weight tensor (kept on the tensor) and made anew when the tensor is
-    written (its version moves).  A tensor made under
+def mma_weights(w: torch.Tensor, layout=None) -> torch.Tensor:
+    """The fragment-ordered weights ``layout(w)``, by default those of w's
+    dtype (``mma_weights_layout`` for bfloat16, ``mma_weights_tf32_layout``
+    for float32), made once per weight tensor (kept on the tensor) and made
+    anew when the tensor is written (its version moves), moved (its data
+    pointer) or asked for in another layout.  A tensor made under
     ``torch.inference_mode`` has no version to follow and gets a fresh copy
     on every call."""
-    layout = _MMA_LAYOUTS[w.dtype]
+    layout = layout or _MMA_LAYOUTS[w.dtype]
     if w.is_inference():
         return layout(w)
+    key = (layout, w.data_ptr(), w._version)
     cached = getattr(w, "_mma_weights", None)
-    if cached is None or cached[0] != w._version:
-        cached = w._mma_weights = (w._version, layout(w))
+    if cached is None or cached[0] != key:
+        cached = w._mma_weights = (key, layout(w))
     return cached[1]
 
 

@@ -237,7 +237,8 @@ def test_each_dtype_builds_its_own_kernel_and_nothing_falls_back(monkeypatch, tm
         with pytest.raises(RuntimeError, match="nvcc not found"):
             conv_block._kernel_fn(dtype)
         assert asked.pop() == ("conv_block_tc",) and not asked
-    assert sorted(p.name for p in build.CSRC_DIR.glob("*.cu")) == ["conv_block_tc.cu"]
+    assert sorted(p.name for p in build.CSRC_DIR.glob("*.cu")) == [
+        "conv_block_tc.cu", "rate_change_tc.cu"]  # the chain's, the rate change's
 
 
 def test_build_runs_one_compiler_per_source(monkeypatch, tmp_path):

@@ -119,6 +119,7 @@ def test_one_enhance_nests_its_spans_on_their_host_ops(model):
     assert all(r["parent"] in parents for r in rates)
     assert {c["attrs"]["entry"] for c in chains} <= {"main", "rows", "plain"}
     assert {r["attrs"]["direction"] for r in rates} == {"up", "down"}
+    assert {r["attrs"]["entry"] for r in rates} == {"plain"}  # the kernel runs on the card
     assert all(r["device_ms"] is None and r["end_ns"] >= r["start_ns"] for r in recs)
     assert len({r["thread"] for r in recs}) == 1
 

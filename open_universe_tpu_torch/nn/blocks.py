@@ -255,6 +255,16 @@ class ConvBlock(nn.Module):
         return (self._kernel_ready((conv,), h)
                 and rate_change.takes(self.rate_change_dir, h, conv.conv.weight, self.rate))
 
+    def _rate_span(self, h: torch.Tensor, kernel: bool, t: int):
+        """The ``conv_block.rate_change`` span of the rate change of h's rows
+        that hands the kernel or the module ``t`` samples a row: the block's
+        width C, its rate r, the conv's Cin and Cout, and whether it
+        low-passes, so that a reader can work out the launch's bound."""
+        return spans.span("conv_block.rate_change", C=min(self.in_channels, self.out_channels),
+                          direction=self.rate_change_dir, entry="kernel" if kernel else "plain",
+                          r=self.rate, Cin=self.in_channels, Cout=self.out_channels,
+                          rows=h.shape[0], T=t, antialiased=self.rate_change_conv.antialiasing)
+
     def _rate_change(self, h: torch.Tensor, kernel: bool) -> torch.Tensor:
         """The rate change of h: one kernel launch, or the module."""
         conv = self.rate_change_conv
@@ -293,9 +303,9 @@ class ConvBlock(nn.Module):
         in front of it, or the plain convs (``utils/spans.py``)."""
         if self.rate_change_dir == "up":
             kernel = self._rate_kernel_eligible(h)
-            with spans.span("conv_block.rate_change", C=self.out_channels, direction="up",
-                            entry="kernel" if kernel else "plain"):
-                if length is not None and self.rate * h.shape[1] < length:
+            pad = length is not None and self.rate * h.shape[1] < length
+            with self._rate_span(h, kernel, h.shape[1] + int(pad)):
+                if pad:
                     h = F.pad(h, (0, 0, 0, 1))
                 h = self._rate_change(h, kernel)
                 if length is not None:
@@ -346,9 +356,9 @@ class ConvBlock(nn.Module):
 
         if self.rate_change_dir == "down":
             kernel = self._rate_kernel_eligible(v_out)
-            with spans.span("conv_block.rate_change", C=self.in_channels, direction="down",
-                            entry="kernel" if kernel else "plain"):
-                r = h.shape[1] % self.rate
-                v_pad = F.pad(v_out, (0, 0, 0, self.rate - r)) if r != 0 and not kernel else v_out
+            r = h.shape[1] % self.rate
+            pad = self.rate - r if r != 0 and not kernel else 0
+            with self._rate_span(v_out, kernel, h.shape[1] + pad):
+                v_pad = F.pad(v_out, (0, 0, 0, pad)) if pad else v_out
                 return self._rate_change(v_pad, kernel), v_out, cond_out
         return v_out, v_out, cond_out

@@ -20,30 +20,38 @@ from open_universe_tpu_torch.utils.convert import fold_weight_norm
 
 N_STEPS = 3
 T = 4000
-_NET = dict(fb_kernel_size=3, rate_factors=[2, 4, 4, 5], n_channels=4,
-            extra_conv_block=True, use_weight_norm=True, seq_model="gru")
-CFG = {
-    "_target_": "open_universe.networks.universe.UniverseGAN",
-    "fs": 16000, "normalization_norm": 2,
-    "normalization_kwargs": {"ref": "both", "level_db": -26.0},
-    "edm": {"noise": 0.25},
-    "score_model": {"_target_": "open_universe.networks.universe.ScoreNetwork", **_NET,
-                    "n_rff": 4, "noise_cond_dim": 16, "use_antialiasing": True,
-                    "time_embedding": "simple"},
-    "condition_model": {"_target_": "open_universe.networks.universe.ConditionerNetwork",
-                        **_NET, "n_mels": 8, "n_mel_oversample": 4,
-                        "encoder_gru_residual": True, "use_antialiasing": False},
-    "diffusion": {"schedule": "geometric", "sigma_min": 0.0005, "sigma_max": 5.0,
-                  "n_steps": 8, "epsilon": 1.3},
-    "losses": {"use_signal_decoupling": True, "signal_decoupling_act": "snake"},
-}
+# the published rate factors of UNIVERSE++ at 16 and 24 kHz
+RATE_FACTORS = {16000: [2, 4, 4, 5], 24000: [2, 3, 5, 8]}
+
+
+def _cfg(fs):
+    net = dict(fb_kernel_size=3, rate_factors=RATE_FACTORS[fs], n_channels=4,
+               extra_conv_block=True, use_weight_norm=True, seq_model="gru")
+    return {
+        "_target_": "open_universe.networks.universe.UniverseGAN",
+        "fs": fs, "normalization_norm": 2,
+        "normalization_kwargs": {"ref": "both", "level_db": -26.0},
+        "edm": {"noise": 0.25},
+        "score_model": {"_target_": "open_universe.networks.universe.ScoreNetwork", **net,
+                        "n_rff": 4, "noise_cond_dim": 16, "use_antialiasing": True,
+                        "time_embedding": "simple"},
+        "condition_model": {"_target_": "open_universe.networks.universe.ConditionerNetwork",
+                            **net, "n_mels": 8, "n_mel_oversample": 4,
+                            "encoder_gru_residual": True, "use_antialiasing": False},
+        "diffusion": {"schedule": "geometric", "sigma_min": 0.0005, "sigma_max": 5.0,
+                      "n_steps": 8, "epsilon": 1.3},
+        "losses": {"use_signal_decoupling": True, "signal_decoupling_act": "snake"},
+    }
 
 
 @pytest.fixture(scope="module")
-def model():
+def model(request):
+    """The narrow UNIVERSE++ at 16 kHz, or at the sampling rate a test hands
+    in (``indirect`` parametrisation)."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield fold_weight_norm(init_weights(instantiate(CFG), seed=1)).eval()
+    fs = getattr(request, "param", 16000)
+    yield fold_weight_norm(init_weights(instantiate(_cfg(fs)), seed=1)).eval()
     torch.set_num_threads(n)
 
 
@@ -140,6 +148,36 @@ def test_one_enhance_nests_its_spans_on_their_host_ops(model):
         _enhance(model)
     second = apart_us(prof, spans.records())
     assert max(min(a, b) for a, b in zip(first, second)) < 50
+
+
+@pytest.mark.parametrize("model", [16000, 24000], indirect=True)
+def test_rate_change_spans_carry_the_shapes_the_blocks_use(model, monkeypatch):
+    """Each ``conv_block.rate_change`` span names what its block hands the
+    kernel or the module: direction, r, Cin, Cout, rows, T and whether it
+    low-passes (the score network's blocks do, the conditioner's do not)."""
+    handed = []
+    inner = ConvBlock._rate_change
+
+    def record(block, h, kernel):
+        out = inner(block, h, kernel)
+        handed.append({"direction": block.rate_change_dir, "entry": "plain", "r": block.rate,
+                       "Cin": h.shape[2], "Cout": out.shape[2], "rows": h.shape[0],
+                       "T": h.shape[1], "antialiased": block.rate_change_conv.antialiasing,
+                       "C": min(h.shape[2], out.shape[2])})
+        return out
+
+    monkeypatch.setattr(ConvBlock, "_rate_change", record)
+    with profile(activities=[ProfilerActivity.CPU]):
+        _enhance(model)
+    got = [r["attrs"] for r in spans.records() if r["name"] == "conv_block.rate_change"]
+    assert got == handed
+    assert {a["r"] for a in got} == set(RATE_FACTORS[model.fs])
+    assert {a["rows"] for a in got} == {2}
+    assert {(a["direction"], a["antialiased"]) for a in got} == {
+        (d, aa) for d in ("down", "up") for aa in (False, True)}
+    # a down block's conv doubles the width, an up block's halves it
+    assert all(a["Cout"] == 2 * a["Cin"] if a["direction"] == "down"
+               else a["Cin"] == 2 * a["Cout"] for a in got)
 
 
 def test_server_spans_and_counters(model):

@@ -11,9 +11,11 @@ Phases, each of which raises (exit code != 0) on failure:
 2. Hold the fused ConvBlock kernel against its plain PyTorch version on the
    card at all ten widths of the UNIVERSE++ 16 and 24 kHz presets
    (C = 32..768) on both routes of ``conv_block_tc.cu`` (bf16 on the tensor
-   cores; f32 as 3xTF32 on the tensor cores): at the length the main path gives
-   the width, T = 1, T = 5 (below a tile) and T = 1004 (a partial last tile
-   on every route), FiLM and cond on and off.  One line per (C, dtype).
+   cores; f32 as 3xTF32 on the tensor cores, on each core the width has,
+   wgmma and mma.sync, the table's and the other forced): at the length the
+   main path gives the width, T = 1, T = 5 (below a tile) and T = 1004 (a
+   partial last tile on every route), FiLM and cond on and off.  One line
+   per (C, dtype).
 2b. The same for the kernel's rows entry (``fused_conv_chain_rows``) on
    lane-packed rows (B, T/P, P*C), P = max(1, 128 // C), at T = P, 5P, 1004
    and the main path's length.
@@ -36,9 +38,10 @@ Phases, each of which raises (exit code != 0) on failure:
    through the kernel and the unfused chain on the same noise: they agree
    within 1e-4, with 94 launches at C = 48..768 (C = 48 on the rows
    entry) and 72 rate-change launches (64 low-passed); one 2 s request
-   served over HTTP (94 and 72 launches).  Then the kernel, its plain
-   version and the unfused chain alone in bf16 and f32 at each of its
-   shapes at batch 128.
+   served over HTTP (94 and 72 launches).  One f32 ``enhance`` at batch
+   128 counted by core must run wgmma at C = 48..384 and mma.sync at 768.
+   Then the kernel, its plain version and the unfused chain alone in bf16
+   and f32 at each of its shapes at batch 128, as in phase 4.
 3e. The rate-change kernel (``ops/kernels/rate_change.py``) against its
    plain version (TF32 off, within 1e-4 of max|plain|) at each rate-change
    shape of phases 3 and 3c at batch 128, and at each shape of an f32
@@ -58,10 +61,19 @@ Phases, each of which raises (exit code != 0) on failure:
    that phase 3 launched, weight each by its launches, and give each
    shape's TFLOP/s and bound share (f32 at the 3xTF32 rate, 495 / 3 TFLOP/s;
    the CUDA cores' 67 TFLOP/s bound of the earlier f32 kernel is printed
-   beside it once).
+   beside it once).  The f32 route runs on the core its table gives the
+   shape (``conv_block.core_launches`` counts it) and is timed on each of
+   its cores, each core's output within the f32 gate of the plain version's;
+   ``[cores]`` lines give each width's ms per enhance on the table's core
+   and on mma.sync beside the 3xTF32 bound.  One f32 ``enhance`` at batch
+   128 counted by core must run wgmma at C = 32..256 and mma.sync at 512.
 4b. Time bf16 ``enhance`` on 2 s clips at batch 1 and 16; then the rows
    entry, its plain version and the unfused chain alone at each rows shape
-   of phase 3 at batch 16, weighted by launches.
+   of phase 3 at batch 1 and 16, weighted by launches, the f32 route on
+   each core as in phase 4.  Then, at each width with both f32 cores
+   (C = 32, 128, 256) at its 2 s length, both cores alone at batch 1, 2,
+   4, 8 and 16: where the table's threshold (MIN_ROWS) falls against the
+   measured crossing.
 5. Trace one ``enhance`` each way in the batch-128 setting with
    ``torch.profiler``: device time by kernel group and under a few PyTorch
    ops, device busy time and idle share; then one ``enhance`` at batch 1.
@@ -260,6 +272,7 @@ BUCKET_S = 1.0  # the server's length buckets
 N_STEPS = 8
 TIMING_BATCH = 128
 SERVE_BATCH = 16
+CROSSOVER_BATCHES = (1, 2, 4, 8, 16)  # phase 4b's rows sweep of the f32 cores
 SOURCES = ("conv_block_tc", "rate_change_tc")
 # ConvBlock width -> length on a 2 s clip: 16 kHz (universepp(16000)) and
 # 24 kHz (config/model/universepp_24k.yaml)
@@ -381,11 +394,11 @@ def ptxas_summary(text: str) -> list:
         m = re.search(r"Function properties for (\S+)", line)
         if m:
             raw = m.group(1)
-            kernel = re.search(r"\d+(conv_block\w*?_kernel)I", raw)
+            kernel = re.search(r"\d+(conv_block\w*?_kernel\w*?)I", raw)
             prec = re.search(r"\d(F32|Bf16)E", raw)
             width = re.search(r"Li(\d+)E", raw)
-            name = (f"{kernel.group(1)}<{prec.group(1) if prec else ''}, C={width.group(1)}>"
-                    if kernel and width else raw)
+            name = (f"{kernel.group(1)}<{prec.group(1) if prec else 'F32'}, "
+                    f"C={width.group(1)}>" if kernel and width else raw)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
@@ -460,13 +473,32 @@ def check_lengths(c: int, rows: bool) -> list:
             (5 * p, True, False), (PARTIAL_T, False, True)]
 
 
+def gate(what, got, ref, dtype) -> tuple:
+    """(max|got - ref|, that over max|ref|) of the larger of v and cond_out;
+    raises where either is off the dtype's bound (TOL) of max|ref|."""
+    worst_err, worst_rel = 0.0, 0.0
+    for name, a, r in zip(("v", "cond_out"), got, ref):
+        if a.shape != r.shape:
+            raise AssertionError(f"{what}: shape {tuple(a.shape)} != {tuple(r.shape)}")
+        err = (a.float() - r.float()).abs().max().item()
+        scale = r.float().abs().max().item()
+        if not (math.isfinite(err) and err <= TOL[dtype] * scale):
+            log(f"{what} {name}: max|d|={err:.3e} max|ref|={scale:.3e} FAIL")
+            raise AssertionError(f"{what}: the kernel disagrees with its plain version "
+                                 f"({name}, {dtype})")
+        worst_err, worst_rel = max(worst_err, err), max(worst_rel, err / scale)
+    return worst_err, worst_rel
+
+
 def phase_kernel_vs_plain(rows: bool = False):
-    """Both routes at every width against the plain version; returns the
-    largest max|kernel - plain| by route, for the unpacked entry or
-    (rows=True) the rows entry."""
+    """Both routes at every width against the plain version, the f32 route
+    on each core the width has (the table's through the entry, the other
+    forced); returns the largest max|kernel - plain| by route, for the
+    unpacked entry or (rows=True) the rows entry."""
     from open_universe_tpu_torch.ops.kernels import conv_block
 
     tag = "rows" if rows else "kernel"
+    entry = "fused_conv_chain_rows" if rows else "fused_conv_chain"
     worst = {}
     for c in conv_block.WIDTHS:
         p = max(1, 128 // c)
@@ -474,6 +506,7 @@ def phase_kernel_vs_plain(rows: bool = False):
             route = conv_block.ROUTES[dtype][0]
             err_c, rel_c = 0.0, 0.0
             cases = check_lengths(c, rows)
+            cores = conv_block.width_cores(dtype, c)
             for t, film, cond in cases:
                 h, weights, nc, ic = chain_inputs(2, t, c, dtype, film, cond, seed=c + t)
                 if rows:
@@ -488,19 +521,17 @@ def phase_kernel_vs_plain(rows: bool = False):
                     torch.cuda.synchronize()
                     ref = conv_block.fused_conv_chain_reference(h, *weights, noise_cond=nc,
                                                                 input_cond=ic)
-                for name, a, r in zip(("v", "cond_out"), got, ref):
-                    if a.shape != r.shape:
-                        raise AssertionError(f"{tag}: shape {tuple(a.shape)} != {tuple(r.shape)}")
-                    err = (a.float() - r.float()).abs().max().item()
-                    scale = r.float().abs().max().item()
-                    if not (math.isfinite(err) and err <= TOL[dtype] * scale):
-                        log(f"[{tag}] C={c} T={t} film={film:d} cond={cond:d} {route} "
-                            f"{name}: max|d|={err:.3e} max|ref|={scale:.3e} FAIL")
-                        raise AssertionError(f"{tag} kernel disagrees with its plain "
-                                             f"version at C={c} T={t} {dtype} ({name})")
-                    err_c, rel_c = max(err_c, err), max(rel_c, err / scale)
-            log(f"[{tag}] C={c:3d} {route:23s} T={[t for t, *_ in cases]}: worst "
-                f"max|d| {err_c:.3e} = {rel_c:.2e} max|ref| (bound {TOL[dtype]:g}) ok")
+                runs = {conv_block.chain_core(dtype, 2 * t, c): got}
+                for core in set(cores) - set(runs):
+                    v, co = conv_block._launch(entry, h, weights, nc, ic, core=core)
+                    runs[core] = (v.reshape(ref[0].shape), co.reshape(ref[1].shape))
+                for core, out in runs.items():
+                    err, rel = gate(f"[{tag}] C={c} T={t} film={film:d} cond={cond:d} "
+                                    f"{route} {core}", out, ref, dtype)
+                    err_c, rel_c = max(err_c, err), max(rel_c, rel)
+            log(f"[{tag}] C={c:3d} {route:23s} {'/'.join(cores):14s} "
+                f"T={[t for t, *_ in cases]}: worst max|d| {err_c:.3e} = {rel_c:.2e} "
+                f"max|ref| (bound {TOL[dtype]:g}) ok")
             worst[route] = max(worst.get(route, 0.0), err_c)
     return worst
 
@@ -512,12 +543,22 @@ def noise_draws(model, b, t, seed):
     return [torch.randn(shape, generator=g, device=DEVICE) for _ in range(N_STEPS)]
 
 
+def core_counts() -> dict:
+    """The chain's launches since the last ``counted_enhance`` by core and
+    width, "core C" -> n."""
+    from open_universe_tpu_torch.ops.kernels import conv_block
+
+    return {f"{core} {c}": n for (core, c), n in sorted(conv_block.core_launches.items())}
+
+
 def counted_enhance(model, mix, noise, dtype=None):
     """enhance with the kernels on; its output and the chain launches it
-    made (``rate_change.launches`` counts from 0 too)."""
+    made (``rate_change.launches`` and ``conv_block.core_launches`` count
+    from 0 too)."""
     from open_universe_tpu_torch.ops.kernels import conv_block, rate_change
 
     conv_block.launches.clear()
+    conv_block.core_launches.clear()
     rate_change.launches.clear()
     out = model.enhance(mix, n_steps=N_STEPS, noise=noise, compute_dtype=dtype)
     torch.cuda.synchronize()
@@ -555,6 +596,7 @@ def check_path(tag, counts, widths, route, out, t):
     for (entry, r, c, t_c, film, cond), n in sorted(counts.items()):
         log(f"[{tag}]   {entry:22s} {r} C={c:3d} T={t_c:5d} film={film:d} cond={cond:d}: "
             f"{n} launches")
+    log(f"[{tag}]   cores: {core_counts()}")
     if tuple(out.shape) != (out.shape[0], t) or not torch.isfinite(out).all():
         raise AssertionError(f"{tag}: enhance output has the wrong shape or is not finite")
     if launches != PATH_LAUNCHES:
@@ -628,6 +670,10 @@ def phase_24k():
     if not diff <= 1e-4:
         raise AssertionError(f"24 kHz kernel path and unfused chain differ by {diff}")
     del mix, noise, out_k
+    mix = torch.randn(TIMING_BATCH, t, generator=g, device=DEVICE) * 0.05
+    cores = check_batch_cores("24k", model, mix, noise_draws(model, TIMING_BATCH, t, seed=14),
+                              (48, 96, 192, 384))
+    del mix
 
     server, service = make_server(model, model_name="universepp-24k-seeded", port=0,
                                   max_batch=SERVE_BATCH, batch_window_ms=50.0,
@@ -656,7 +702,7 @@ def phase_24k():
     if served_rate != RATE_LAUNCHES:
         raise AssertionError(f"24 kHz request: {served_rate} rate-change launches")
     del model, server, service
-    return dict(kernel_vs_unfused=diff, launches=by_entry(counts),
+    return dict(kernel_vs_unfused=diff, launches=by_entry(counts), batch128_cores=cores,
                 rate_change_launches=sum(rate.values()), served_ms=served_ms,
                 served_launches=by_entry(served), served_rate_change_launches=served_rate), \
         time_shapes(by_shape(counts), TIMING_BATCH, tag="24k"), rate
@@ -831,7 +877,10 @@ def time_shapes(shape_counts, batch, rows=False, tag=None):
     """The kernel entry, its plain version and the unfused chain alone at
     each (C, T, FiLM, cond) of shape_counts at this batch, in bf16 and in f32
     (3xTF32); one dict per shape with its launches, bounds, TFLOP/s and
-    bound share (bf16 keys bare, f32 keys f32_*)."""
+    bound share (bf16 keys bare, f32 keys f32_*).  f32 runs on the core the
+    table gives the shape (f32_core), and is timed on each core the width
+    has (f32_mma_sync_ms, f32_wgmma_ms: None where it lacks that core), each
+    core's output held to the f32 gate against the plain version's."""
     from open_universe_tpu_torch.nn.blocks import ConvBlock
     from open_universe_tpu_torch.nn.layers import init_weights
     from open_universe_tpu_torch.ops import kernels
@@ -850,24 +899,42 @@ def time_shapes(shape_counts, batch, rows=False, tag=None):
             hr, icr = pack(h, c), pack(ic, c)
             if rows:
                 def kernel():
-                    conv_block.fused_conv_chain_rows(hr, p, c, *weights, noise_cond=nc,
-                                                     input_cond_rows=icr)
+                    return conv_block.fused_conv_chain_rows(hr, p, c, *weights, noise_cond=nc,
+                                                            input_cond_rows=icr)
 
                 def plain():
-                    conv_block.fused_conv_chain_rows_reference(
+                    return conv_block.fused_conv_chain_rows_reference(
                         hr, p, c, *weights, noise_cond=nc, input_cond_rows=icr)
             else:
                 def kernel():
-                    conv_block.fused_conv_chain(h, *weights, noise_cond=nc, input_cond=ic)
+                    return conv_block.fused_conv_chain(h, *weights, noise_cond=nc,
+                                                       input_cond=ic)
 
                 def plain():
-                    conv_block.fused_conv_chain_reference(h, *weights, noise_cond=nc,
-                                                          input_cond=ic)
+                    return conv_block.fused_conv_chain_reference(h, *weights, noise_cond=nc,
+                                                                 input_cond=ic)
 
             def unfused():
                 block(h, noise_cond=nc, input_cond=ic)
 
             ms, plain_ms = cuda_ms(kernel, 10), cuda_ms(plain, 3 if key else 5)
+            if key:
+                entry = "fused_conv_chain_rows" if rows else "fused_conv_chain"
+                core = conv_block.chain_core(dtype, batch * t_c, c)
+                want = plain()
+                gate(f"[{tag}] C={c} T={t_c} B={batch} f32 {core}", kernel(), want, dtype)
+                on = dict.fromkeys(conv_block.CORES)
+                on[core] = ms
+                for other in set(conv_block.width_cores(dtype, c)) - {core}:
+                    def forced():
+                        return conv_block._launch(entry, h, weights, nc, ic, core=other)
+
+                    got = tuple(x.reshape(w.shape) for x, w in zip(forced(), want))
+                    gate(f"[{tag}] C={c} T={t_c} B={batch} f32 {other}", got, want, dtype)
+                    on[other] = cuda_ms(forced, 10)
+                del want
+                shape.update(f32_core=core, f32_mma_sync_ms=on["mma_sync"],
+                             f32_wgmma_ms=on["wgmma"])
             kernels.enable(False)
             try:
                 with torch.no_grad():
@@ -884,11 +951,44 @@ def time_shapes(shape_counts, batch, rows=False, tag=None):
                 f"{str(dtype)[6:]}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
                 f"{bound / ms:.3f} of bound {bound:.4f} ms by "
                 f"{'bytes' if t_bytes >= t_ops else 'operations'}), plain {plain_ms:.4f}, "
-                f"unfused chain {unfused_ms:.4f}")
+                f"unfused chain {unfused_ms:.4f}"
+                + (f"; {shape['f32_core']} core; mma.sync "
+                   f"{shape['f32_mma_sync_ms'] or float('nan'):.4f}, "
+                   f"wgmma {shape['f32_wgmma_ms'] or float('nan'):.4f}" if key else ""))
             del h, weights, nc, ic, hr, icr
         shapes.append(shape)
         del block
     return shapes
+
+
+def log_cores(tag, shapes):
+    """One line per width of ``time_shapes``' f32 numbers: ms per enhance
+    (each shape alone, times its launches) on the table's core and on
+    mma.sync where the width has it, beside the 3xTF32 bound."""
+    for c in sorted({s["C"] for s in shapes}):
+        w = [s for s in shapes if s["C"] == c]
+        bound = sum(max(s["f32_bytes_ms"], s["f32_ops_ms"]) * s["launches"] for s in w)
+        ms = sum(s["f32_ms"] * s["launches"] for s in w)
+        mma = None if any(s["f32_mma_sync_ms"] is None for s in w) else \
+            sum(s["f32_mma_sync_ms"] * s["launches"] for s in w)
+        log(f"[cores] f32 per enhance, {tag}, C={c:3d} x{sum(s['launches'] for s in w)}: "
+            f"{'/'.join(sorted({s['f32_core'] for s in w}))} {ms:.2f} ms, mma.sync "
+            f"{'(none at this width)' if mma is None else f'{mma:.2f} ms'}, 3xTF32 bound "
+            f"{bound:.2f} ms ({bound / ms:.2f} of it)")
+
+
+def check_batch_cores(tag, model, mix, noise, wgmma_widths):
+    """One f32 ``enhance`` of the batch counted by core: every width in
+    ``wgmma_widths`` on wgmma, the others on mma.sync, one launch per
+    ConvBlock.  Returns the counts, "core C" -> launches."""
+    _, counts = counted_enhance(model, mix, noise)
+    cores = core_counts()
+    log(f"[{tag}] f32 enhance batch {mix.shape[0]}: cores {cores}")
+    want = {f"{'wgmma' if c in wgmma_widths else 'mma_sync'} {c}"
+            for c in {k[2] for k in counts}}
+    if set(cores) != want or sum(cores.values()) != PATH_LAUNCHES:
+        raise AssertionError(f"{tag}: batch {mix.shape[0]} ran the cores {cores}, not {want}")
+    return cores
 
 
 def phase_timing(model, shape_counts):
@@ -909,13 +1009,15 @@ def phase_timing(model, shape_counts):
         log(f"[timing] enhance batch {batch} x {CLIP_S} s {'bf16' if dtype else 'f32'}, "
             f"{'kernel' if fused else 'unfused'}: median {s:.4f} s -> "
             f"{audio_s / s:.2f} audio-s/s")
+    check_batch_cores("timing", model, mix, noise, (32, 64, 128, 256))
 
     return rates, time_shapes(shape_counts, batch), mix, noise
 
 
 def phase_small_batch(model, rows_shapes):
     """bf16 enhance at batch 1 and SERVE_BATCH, twice each; then the rows
-    entry alone at each of its shapes in phase 3 at SERVE_BATCH."""
+    entry alone at each of its shapes in phase 3 at batch 1 and SERVE_BATCH
+    (the second's shapes are returned, the first's logged)."""
     t = int(CLIP_S * FS)
     rates, inputs = {}, {}
     for batch in (1, SERVE_BATCH, SERVE_BATCH, 1):
@@ -929,7 +1031,36 @@ def phase_small_batch(model, rows_shapes):
         log(f"[small] enhance batch {batch} x {CLIP_S} s bf16: median "
             f"{s * 1e3:.2f} ms -> {batch * CLIP_S / s:.2f} audio-s/s")
 
+    time_shapes(rows_shapes, 1, rows=True, tag="rows b1")
     return rates, time_shapes(rows_shapes, SERVE_BATCH, rows=True), inputs[1]
+
+
+def phase_crossover():
+    """Both f32 cores alone at each width that has both, at its 2 s length
+    with FiLM and cond, at each of CROSSOVER_BATCHES: the table's core
+    beside the faster one.  Returns "C<c> B<batch>" -> rows, the table's
+    core and ms on each core."""
+    from open_universe_tpu_torch.ops.kernels import conv_block
+
+    out = {}
+    for c in conv_block.WIDTHS:
+        if conv_block.width_cores(torch.float32, c) != conv_block.CORES:
+            continue
+        t = {**WIDTH_LENGTHS, **WIDTH_LENGTHS_24K}[c]
+        for batch in CROSSOVER_BATCHES:
+            h, weights, nc, ic = chain_inputs(batch, t, c, torch.float32, True, True)
+            ms = {core: cuda_ms(lambda: conv_block._launch("fused_conv_chain", h, weights, nc,
+                                                           ic, core=core), 10)
+                  for core in conv_block.CORES}
+            table = conv_block.chain_core(torch.float32, batch * t, c)
+            faster = min(ms, key=ms.get)
+            out[f"C{c} B{batch}"] = dict(rows=batch * t, table=table, **ms)
+            log(f"[crossover] C={c:3d} T={t:5d} B={batch:2d} ({batch * t} rows): mma.sync "
+                f"{ms['mma_sync']:.4f} ms, wgmma {ms['wgmma']:.4f} ms; table {table}"
+                + ("" if table == faster else f", {faster} faster by "
+                   f"{ms[table] / ms[faster] - 1:.1%}"))
+            del h, weights, nc, ic
+    return out
 
 
 def model_config(name: str) -> dict:
@@ -3773,6 +3904,7 @@ def main() -> int:
     lap("4 timing")
     small_rates, rows_shapes, (mix1, noise1) = phase_small_batch(
         model, by_shape(counts, "fused_conv_chain_rows"))
+    crossover = phase_crossover()
     lap("4b small batch")
     profiled = phase_profile(model, mix, noise)
     profiled_1 = phase_profile(model, mix1, noise1, runs=(("batch 1", True),))
@@ -3843,6 +3975,13 @@ def main() -> int:
         of the bf16 (key "") or the f32 (key "f32_") route."""
         bytes_ms, ops_ms = total(f"{key}bytes_ms", shapes), total(f"{key}ops_ms", shapes)
         return {f"{key}ms": total(f"{key}ms", shapes),
+                # mma.sync at the widths that have it (f32_mma_sync_widths)
+                **({"f32_mma_sync_ms": sum(s["f32_mma_sync_ms"] * s["launches"]
+                                           for s in shapes if s["f32_mma_sync_ms"] is not None),
+                    "f32_mma_sync_widths": sorted({s["C"] for s in shapes
+                                                   if s["f32_mma_sync_ms"] is not None}),
+                    "f32_cores": sorted({f"{s['f32_core']} {s['C']}" for s in shapes})}
+                   if key else {}),
                 f"{key}plain_ms": total(f"{key}plain_ms", shapes),
                 f"{key}bound_ms": sum(max(s[f"{key}bytes_ms"], s[f"{key}ops_ms"])
                                       * s["launches"] for s in shapes),
@@ -3939,6 +4078,8 @@ def main() -> int:
         "launches_per_enhance": entries,
         "serving_launches": serve_entries,
         "enhance_small_batch": small_rates,
+        # phase 4b: both f32 cores alone at batch 1..16 where a width has both
+        "core_crossover": crossover,
         "profile_batch1": profiled_1,
         "serving": served,
         "cli_launches": cli_entry("fused_conv_chain_rows"),
@@ -3997,9 +4138,12 @@ def main() -> int:
     }]}
     for tag, sh in (("batch 128, 16 kHz", shapes), ("batch 128, 24 kHz", shapes_24k),
                     ("rows, batch 16", rows_shapes)):
-        log(f"[bounds] f32 per enhance, {tag}: kernel {total('f32_ms', sh):.2f} ms, "
-            f"bound {sums(sh, 'f32_')['f32_bound_ms']:.2f} ms at 3xTF32 (495 / 3 TFLOP/s), "
+        f32 = sums(sh, "f32_")
+        log(f"[bounds] f32 per enhance, {tag}: kernel {total('f32_ms', sh):.2f} ms "
+            f"({f32['f32_mma_sync_ms']:.2f} on mma.sync at C = {f32['f32_mma_sync_widths']}), "
+            f"bound {f32['f32_bound_ms']:.2f} ms at 3xTF32 (495 / 3 TFLOP/s), "
             f"{cuda_core_bound(sh):.2f} ms at the CUDA cores' 67 TFLOP/s")
+        log_cores(tag, sh)
     print(card_line(), flush=True)
     print(json.dumps(kernel_line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,12 +13,18 @@ float32 (as the JAX kernel takes them), h in (B, T, C), and return
 (v, cond_out).  One source, ``csrc/conv_block_tc.cu``, runs the chain on the
 tensor cores at the widths ``WIDTHS`` (every ConvBlock width of the
 UNIVERSE++ 16 and 24 kHz presets), in two routes, one per dtype: bfloat16 on
-``mma.sync.m16n8k16``, float32 as 3xTF32 on ``mma.sync.m16n8k8`` (each
-product split into TF32 halves, a_hi b_hi + a_hi b_lo + a_lo b_hi summed in
-float32, which holds float32's 1e-4 gate where one TF32 pass does not).
-The weights go in ``mma_weights``' fragment order for the dtype (made once
-per weight tensor; float32 split into hi and lo there).  Neither route
-stands in for the other: a kernel that does not build or launch raises.
+``mma.sync.m16n8k16``, float32 as 3xTF32 (each product split into TF32
+halves, a_hi b_hi + a_hi b_lo + a_lo b_hi summed in float32, which holds
+float32's 1e-4 gate where one TF32 pass does not).  The float32 route has two
+cores: ``wgmma`` (warpgroup products, the weights staged in shared memory
+once per block by TMA's bulk copy) and ``mma_sync`` (per-warp
+``mma.sync.m16n8k8`` with the weights read from L2); the source's table
+(``WgTile``) gives each launch its core from C and the rows B T it covers
+(``chain_core``): C = 48, 64, 96, 192 and 384 have only wgmma, 512 and 768
+only mma_sync, 32, 128 and 256 both (``width_cores``).  The weights go in the layout of the dtype and core
+(``mma_weights``, made once per weight tensor and layout; float32 split into
+hi and lo there).  Neither route nor core stands in for another: a kernel
+that does not build or launch raises.
 
 ``fused_conv_chain_rows`` is the same chain on the JAX package's lane-packed
 rows (B, T/P, P*C), P = max(1, 128 // C).  Row r, lane p*C + c holds sample
@@ -27,13 +33,15 @@ the same kernel on a view.  The TPU kernel's block-Toeplitz weight packing
 only fills the TPU's 128 lanes and has no counterpart here.
 
 ``launches`` counts each launch by (entry, route, C, T, with FiLM, with
-cond), route one of ``ROUTES``' names; ``launches.clear()`` sets every count
-to 0.  The plain version is no launch.
+cond), route one of ``ROUTES``' names; ``core_launches`` counts it again by
+(core, C), core one of ``CORES``; ``clear()`` sets every count to 0.  The
+plain version is no launch.
 """
 from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -48,17 +56,54 @@ WIDTHS = (32, 48, 64, 96, 128, 192, 256, 384, 512, 768)
 ROUTES = {torch.float32: ("f32_tensor_cores_3xtf32", "conv_block_tc", "ou_conv_block_tc_f32"),
           torch.bfloat16: ("bf16_tensor_cores", "conv_block_tc", "ou_conv_block_tc")}
 
+# the C entries' core numbers
+CORES = ("mma_sync", "wgmma")
+
 launches: collections.Counter = collections.Counter()
+core_launches: collections.Counter = collections.Counter()
+
+
+def entry_fn(lib: ctypes.CDLL, dtype):
+    """The C entry of ``dtype``'s route in a built source, its argument types
+    set (the float32 entry takes a core number last)."""
+    fn = getattr(lib, ROUTES[dtype][2])
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+                       + [ctypes.c_int] * (dtype == torch.float32))
+    return fn
 
 
 def _kernel_fn(dtype):
     """The C entry of ``dtype``'s route, its library built and loaded."""
-    _, source, symbol = ROUTES[dtype]
-    fn = getattr(build.load(source), symbol)
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    return fn
+    return entry_fn(build.load(ROUTES[dtype][1]), dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _wgmma_min_rows(c: int, lib: Optional[ctypes.CDLL] = None) -> int:
+    """The source's ``WgTile<c>::MIN_ROWS``, -1 where width c has no wgmma
+    core (``lib``: another build of the source)."""
+    fn = (lib or build.load(ROUTES[torch.float32][1])).ou_conv_block_tc_f32_min_rows
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int]
+    return fn(c)
+
+
+def width_cores(dtype, c: int, lib: Optional[ctypes.CDLL] = None) -> Tuple[str, ...]:
+    """The cores ``dtype``'s route has at width ``c``: bfloat16 mma_sync;
+    float32 wgmma at the widths of the source's ``WgTile``, and mma_sync
+    where that has no entry or a MIN_ROWS above 0."""
+    if dtype != torch.float32:
+        return ("mma_sync",)
+    least = _wgmma_min_rows(c, lib)
+    return tuple(core for core, has in zip(CORES, (least != 0, least >= 0)) if has)
+
+
+def chain_core(dtype, rows: int, c: int, lib: Optional[ctypes.CDLL] = None) -> str:
+    """The core the source's table gives a launch of ``rows`` = B T rows at
+    width ``c`` in ``dtype``'s route: wgmma from the width's MIN_ROWS up."""
+    if dtype != torch.float32:
+        return "mma_sync"
+    return "wgmma" if 0 <= _wgmma_min_rows(c, lib) <= rows else "mma_sync"
 
 
 def mma_weights_layout(w: torch.Tensor) -> torch.Tensor:
@@ -101,24 +146,44 @@ def mma_weights_tf32_layout(w: torch.Tensor) -> torch.Tensor:
     return x.reshape(k, cin // 8, cout // 8, 32, 4)
 
 
+def wgmma_weights_tf32_layout(w: torch.Tensor) -> torch.Tensor:
+    """float32 (K, Cin, Cout) -> the wgmma core's weight stream
+    (K, Cin/8, 2, Cout/8, 2, 8, 4): for tap k and 8-row block kb of Cin (one
+    k8 step, 64 Cout contiguous bytes, a stage of the kernel's ring), part
+    0 holds hi and part 1 lo of w[k, 8kb + 4kh + kk, 8j + r] at (j, kh, r,
+    kk): wgmma's no-swizzle K-major B tile, core matrices of 8 output x 4
+    input channels."""
+    k, cin, cout = w.shape
+    x = torch.stack(tf32_split(w), 0)                          # part k cin cout
+    x = x.reshape(2, k, cin // 8, 2, 4, cout // 8, 8)          # part k kb kh kk j r
+    x = x.permute(1, 2, 0, 5, 3, 6, 4).contiguous()            # k kb part j kh r kk
+    return x
+
+
 _MMA_LAYOUTS = {torch.bfloat16: mma_weights_layout, torch.float32: mma_weights_tf32_layout}
+# the f32 route's weight layout by core
+_F32_LAYOUTS = {"mma_sync": mma_weights_tf32_layout, "wgmma": wgmma_weights_tf32_layout}
 
 
 def mma_weights(w: torch.Tensor, layout=None) -> torch.Tensor:
     """The fragment-ordered weights ``layout(w)``, by default those of w's
     dtype (``mma_weights_layout`` for bfloat16, ``mma_weights_tf32_layout``
-    for float32), made once per weight tensor (kept on the tensor) and made
-    anew when the tensor is written (its version moves), moved (its data
-    pointer) or asked for in another layout.  A tensor made under
-    ``torch.inference_mode`` has no version to follow and gets a fresh copy
-    on every call."""
+    for float32), made once per weight tensor and layout (kept on the
+    tensor: at C = 32, 128 and 256, where small batches take the
+    mma_sync core and large ones wgmma, a float32 weight may hold both
+    layouts, each 8 bytes a weight) and made anew when the tensor is written (its version moves) or
+    moved (its data pointer).  A tensor made under ``torch.inference_mode``
+    has no version to follow and gets a fresh copy on every call."""
     layout = layout or _MMA_LAYOUTS[w.dtype]
     if w.is_inference():
         return layout(w)
-    key = (layout, w.data_ptr(), w._version)
-    cached = getattr(w, "_mma_weights", None)
+    key = (w.data_ptr(), w._version)
+    cache = getattr(w, "_mma_weights", None)
+    if cache is None:
+        cache = w._mma_weights = {}
+    cached = cache.get(layout)
     if cached is None or cached[0] != key:
-        cached = w._mma_weights = (key, layout(w))
+        cached = cache[layout] = (key, layout(w))
     return cached[1]
 
 
@@ -182,28 +247,47 @@ def fused_conv_chain(
     return _launch("fused_conv_chain", h, weights, noise_cond, input_cond)
 
 
-def _launch(entry, h, weights, noise_cond, input_cond):
-    """Check the operands of a CUDA call, launch the kernel of h's dtype on
-    h (B, T, C) and count the launch under ``entry`` and its route."""
-    if h.device.type != "cuda":
-        raise ValueError(f"{entry} runs on cpu or cuda, not {h.device}")
-    _check(h, weights, noise_cond, input_cond)
+def run_kernel(fn, core, h, weights, noise_cond, input_cond):
+    """Launch the C entry ``fn`` (of h's dtype) on ``core`` with checked
+    operands, the weights laid out for that core; (v, cond_out)."""
     b, t, c = h.shape
-    route = ROUTES[h.dtype][0]
-    weights = tuple(mma_weights(x) if i in (0, 3, 6) else x for i, x in enumerate(weights))
+    f32 = h.dtype == torch.float32
+    layout = _F32_LAYOUTS[core] if f32 else None
+    weights = tuple(mma_weights(x, layout) if i in (0, 3, 6) else x
+                    for i, x in enumerate(weights))
     v = torch.empty_like(h)
     cond_out = torch.empty_like(h)
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = _kernel_fn(h.dtype)(
-            h.data_ptr(), *(x.data_ptr() for x in weights),
-            noise_cond.data_ptr() if noise_cond is not None else None,
-            input_cond.data_ptr() if input_cond is not None else None,
-            v.data_ptr(), cond_out.data_ptr(), b, t, c, stream)
+        err = fn(h.data_ptr(), *(x.data_ptr() for x in weights),
+                 noise_cond.data_ptr() if noise_cond is not None else None,
+                 input_cond.data_ptr() if input_cond is not None else None,
+                 v.data_ptr(), cond_out.data_ptr(), b, t, c, stream,
+                 *((CORES.index(core),) if f32 else ()))
     if err != 0:
-        raise RuntimeError(f"conv_block kernel ({route}) launch failed: "
-                           f"cudaError_t {err}")
+        raise RuntimeError(f"conv_block kernel ({ROUTES[h.dtype][0]}, {core}) launch "
+                           f"failed: cudaError_t {err}")
+    return v, cond_out
+
+
+def _launch(entry, h, weights, noise_cond, input_cond, core=None):
+    """Check the operands of a CUDA call, launch the kernel of h's dtype on
+    h (B, T, C), on the table's core or on ``core``, and count the launch
+    under ``entry`` and its route, and under its core."""
+    if h.device.type != "cuda":
+        raise ValueError(f"{entry} runs on cpu or cuda, not {h.device}")
+    weights = tuple(weights)
+    _check(h, weights, noise_cond, input_cond)
+    b, t, c = h.shape
+    if core is None:
+        core = chain_core(h.dtype, b * t, c)
+    elif core not in width_cores(h.dtype, c):
+        raise RuntimeError(f"{ROUTES[h.dtype][0]} has no {core} core at C={c}; it has "
+                           f"{width_cores(h.dtype, c)}")
+    v, cond_out = run_kernel(_kernel_fn(h.dtype), core, h, weights, noise_cond, input_cond)
+    route = ROUTES[h.dtype][0]
     launches[(entry, route, c, t, noise_cond is not None, input_cond is not None)] += 1
+    core_launches[(core, c)] += 1
     return v, cond_out
 
 

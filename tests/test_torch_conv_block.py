@@ -4,39 +4,55 @@ interpret mode) and against JAX's unfused ConvBlock, and the wrapper's and
 the ConvBlock's dispatch.  Bounds: 2e-5 at float32; 3e-2 max|ref| at bf16,
 where the two sides round at the same points but may sum in another order.
 
-The CUDA kernel itself builds and runs only on the card; ``chip_smoke.py``
-holds it against the plain version there.  Here the f32 route's numerics
-(3xTF32) are held by an emulation of its split products.
+The CUDA kernel itself builds and runs only on the card: the tests marked
+``card`` hold both routes against the plain version there, the f32 route on
+each of its cores (``python -m pytest --noconftest -m card
+tests/test_torch_conv_block.py``; that machine has no JAX, which only the
+CPU tests need).  Here the f32 route's numerics (3xTF32) are held by an
+emulation of its split products.
 """
+import contextlib
+import math
+import re
+
 import numpy as np
 import pytest
-from threadpoolctl import threadpool_limits
+import torch
 
-jax = pytest.importorskip("jax")
-import jax.numpy as jnp  # noqa: E402
-import torch  # noqa: E402
+try:
+    import jax
+    import jax.numpy as jnp
 
-from open_universe_tpu.nn.blocks import ConvBlock as JaxConvBlock  # noqa: E402
-from open_universe_tpu.ops import pallas as pallas_config  # noqa: E402
-from open_universe_tpu.ops.pallas.conv_block import (  # noqa: E402
-    fused_conv_chain as jax_fused,
-    fused_conv_chain_rows as jax_fused_rows,
-)
+    from open_universe_tpu.nn.blocks import ConvBlock as JaxConvBlock
+    from open_universe_tpu.ops import pallas as pallas_config
+    from open_universe_tpu.ops.pallas.conv_block import (
+        fused_conv_chain as jax_fused,
+        fused_conv_chain_rows as jax_fused_rows,
+    )
+except ImportError:  # the card's machine: the card tests need no JAX
+    jax = None
 from open_universe_tpu_torch.nn.blocks import ConvBlock  # noqa: E402
 from open_universe_tpu_torch.ops import kernels  # noqa: E402
-from open_universe_tpu_torch.ops.kernels import conv_block  # noqa: E402
+from open_universe_tpu_torch.ops.kernels import conv_block, tile_probe  # noqa: E402
 from open_universe_tpu_torch.utils.convert import from_jax_params  # noqa: E402
 
 TOL = 2e-5
+CARD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}  # of max|plain|, on the card
+needs_jax = pytest.mark.skipif(jax is None, reason="holds the port against the JAX package")
 
 
 @pytest.fixture(scope="module", autouse=True)
 def _one_torch_thread():
     """One intra-op thread: these small tensors gain nothing from more, and
     more oversubscribe the cores the other test workers use."""
+    try:
+        from threadpoolctl import threadpool_limits
+        blas = threadpool_limits(1)  # numpy's BLAS too
+    except ImportError:
+        blas = contextlib.nullcontext()
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    with threadpool_limits(1):  # numpy's BLAS too
+    with blas:
         yield
     torch.set_num_threads(n)
 
@@ -95,6 +111,7 @@ def _close(port, ref, record_property=None):
 # the JAX kernel tests' cases: FiLM and cond on and off, several tiles
 # (tile_target=64 rows), lane packing P = 16, 4 and 1; and the 24 kHz
 # preset's C = 48 (P = 2, 96 lanes) and C = 96 (P = 1)
+@needs_jax
 @pytest.mark.parametrize("c,t,with_film,with_cond", [
     (8, 2048, False, False),
     (8, 2048, True, True),
@@ -113,6 +130,7 @@ def test_plain_version_matches_pallas_kernel(rng, interpret_mode, record_propert
     _close(_plain(h, weights, nc, ic), ref, record_property)
 
 
+@needs_jax
 @pytest.mark.parametrize("c,t,with_film,with_cond", [
     (32, 1280, True, True),
     (128, 512, True, False),
@@ -143,6 +161,7 @@ def test_plain_version_matches_pallas_kernel_bf16(rng, interpret_mode, record_pr
         assert diff <= 3e-2 * scale, (name, diff, scale)
 
 
+@needs_jax
 @pytest.mark.parametrize("c,t", [(32, 1000), (128, 200)])  # a partial tail tile
 def test_plain_version_matches_pallas_rows_entry(rng, interpret_mode, record_property,
                                                  c, t):
@@ -158,6 +177,7 @@ def test_plain_version_matches_pallas_rows_entry(rng, interpret_mode, record_pro
            record_property)
 
 
+@needs_jax
 @pytest.mark.parametrize("c,t", [(32, 1001), (8, 201)])
 def test_plain_version_matches_unfused_chain_where_pallas_refuses(rng, record_property,
                                                                   c, t):
@@ -336,6 +356,43 @@ def test_tf32_weights_are_split_mma_fragments():
     assert again is not cached and torch.equal(again, 2 * frag)
 
 
+def test_tf32_weights_are_wgmma_stage_tiles():
+    """The f32 wgmma core's weight stream: for tap k and 8-row block kb of
+    Cin (one k8 step, one ring stage of 64 Cout bytes, contiguous in tap
+    then kb order), part 0 holds the TF32 hi and part 1 the lo of
+    w[k, 8kb + 4kh + kk, 8j + r] at (j, kh, r, kk): core matrices of 8
+    output x 4 input channels of 16-byte rows, the next 4 input channels 128
+    bytes on, the next 8 output channels 256 bytes on.  Cached beside the
+    mma.sync core's layout of the same tensor, each made anew when it is
+    written."""
+    g = torch.Generator().manual_seed(1)
+    w = torch.randn(5, 16, 24, generator=g) * torch.logspace(-3, 3, 24)
+    hi, lo = conv_block.tf32_split(w)
+    tiles = conv_block.wgmma_weights_tf32_layout(w)
+    assert tiles.shape == (5, 2, 2, 3, 2, 8, 4) and tiles.is_contiguous()
+    for k, kb, part, j, kh, r, kk in ((0, 0, 0, 0, 0, 0, 0), (4, 1, 1, 2, 1, 7, 3),
+                                      (2, 0, 1, 1, 0, 3, 2), (3, 1, 0, 2, 1, 5, 1)):
+        want = (hi, lo)[part][k, 8 * kb + 4 * kh + kk, 8 * j + r]
+        assert torch.equal(tiles[k, kb, part, j, kh, r, kk], want)
+    # byte offsets of the stage: LBO 128 (kh), SBO 256 (j), 64 Cout per step
+    flat = tiles.reshape(-1)
+    step = 64 * 24 // 4
+    assert torch.equal(flat[step * (3 * 2 + 1):][:32 * 24 // 4 * 2].reshape(2, 3, 2, 8, 4),
+                       tiles[3, 1])
+    assert torch.equal(flat[step * 5 + 256 // 4 * 2 + 128 // 4 + 4 * 5:][:4],
+                       hi[2, 8 * 1 + 4 + torch.arange(4), 8 * 2 + 5])
+    both = [conv_block.mma_weights(w, layout) for layout in
+            (conv_block.wgmma_weights_tf32_layout, conv_block.mma_weights_tf32_layout)]
+    assert torch.equal(both[0], tiles)
+    assert torch.equal(both[1], conv_block.mma_weights_tf32_layout(w))
+    assert conv_block.mma_weights(w, conv_block.wgmma_weights_tf32_layout) is both[0]
+    assert conv_block.mma_weights(w) is both[1]  # float32's default: mma.sync's
+    with torch.no_grad():
+        w.mul_(2)
+    again = conv_block.mma_weights(w, conv_block.wgmma_weights_tf32_layout)
+    assert again is not both[0] and torch.equal(again, 2 * tiles)
+
+
 def _tf32x3_chain(h, w5, b5, a1, w3a, b3a, a2, w3b, b3b, a3, noise_cond, input_cond):
     """The f32 chain with every conv product split as the 3xTF32 kernel
     splits it: weights into TF32 hi + lo (``tf32_split``), activations into
@@ -407,6 +464,7 @@ def test_convblock_kernel_weights_follow_the_parameters():
     np.testing.assert_array_equal(again[0].numpy(), 2.0 * args[0].numpy())
 
 
+@needs_jax
 def test_convblock_dispatch(rng, monkeypatch):
     """Folded weights under no_grad or inference_scope take the fused path at
     any width and length; training, weight norm or enable(False) take the
@@ -453,3 +511,194 @@ def test_convblock_dispatch(rng, monkeypatch):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=TOL, rtol=0)
         np.testing.assert_allclose(a.numpy(), d.numpy(), atol=TOL, rtol=0)
     assert grad_on[0].requires_grad
+
+
+def test_f32_cores_follow_the_table(monkeypatch):
+    """The f32 route's cores come from the source's WgTile: a width without
+    an entry has only mma_sync, one with MIN_ROWS = 0 only wgmma, the others
+    both, wgmma from MIN_ROWS rows up; the source has a Tile<F32, C> (the
+    mma.sync core) exactly at the widths that can take it, and bf16 runs
+    mma_sync everywhere."""
+    src = (tile_probe.build.CSRC_DIR / "conv_block_tc.cu").read_text()
+    least = {int(c): int(m) for c, m in re.findall(
+        r"struct WgTile<(\d+)> \{[^}]*MIN_ROWS = (\d+);", src)}
+    f32_tiles = {int(c) for c in re.findall(r"struct Tile<F32, (\d+)>", src)}
+    bf16_tiles = {int(c) for c in re.findall(r"struct Tile<Bf16, (\d+)>", src)}
+    assert bf16_tiles == set(conv_block.WIDTHS)
+    assert f32_tiles == {c for c in conv_block.WIDTHS if least.get(c, -1) != 0}
+    assert set(least) < set(conv_block.WIDTHS) and 768 not in least
+    monkeypatch.setattr(conv_block, "_wgmma_min_rows", lambda c, lib=None: least.get(c, -1))
+    for c in conv_block.WIDTHS:
+        cores = conv_block.width_cores(torch.float32, c)
+        assert cores == {-1: ("mma_sync",), 0: ("wgmma",)}.get(least.get(c, -1),
+                                                                 conv_block.CORES)
+        assert conv_block.width_cores(torch.bfloat16, c) == ("mma_sync",)
+        for rows in (1, 2 * 32160, 128 * 201, 128 * 32160):
+            core = conv_block.chain_core(torch.float32, rows, c)
+            assert core in cores
+            assert (core == "wgmma") == (c in least and rows >= least[c])
+            assert conv_block.chain_core(torch.bfloat16, rows, c) == "mma_sync"
+
+
+def test_tile_probe_writes_both_tables():
+    """``tile_probe`` writes a table's entries into a copy of the source: a
+    Tile<P, C> entry (mma.sync) and a WgTile<C> entry (wgmma) each replace
+    the one line of their width and nothing else; a width the source has no
+    entry for is refused."""
+    src = (tile_probe.build.CSRC_DIR / "conv_block_tc.cu").read_text()
+    table = {("F32", 128): (32, 8, 2), ("WgTile", 128): (64, 2, 64, 1, 6, 1, 4096)}
+    out = tile_probe.table_source(table)
+    assert ("template <> struct Tile<F32, 128> { static constexpr int BM = 32, WN = 8, "
+            "BLOCKS = 2; };") in out
+    assert ("template <> struct WgTile<128> { static constexpr int BM = 64, NW = 2, WI = 64, "
+            "KS = 1, STAGES = 6, BLOCKS = 1, MIN_ROWS = 4096; };") in out
+    changed = [a for a, b in zip(src.splitlines(), out.splitlines()) if a != b]
+    assert len(src.splitlines()) == len(out.splitlines()) and len(changed) == 2
+    for name, t in tile_probe.TABLES.items():
+        tile_probe.table_source(t)  # every probe table names entries the source has
+    with pytest.raises(ValueError, match="WgTile<768>"):
+        tile_probe.table_source({("WgTile", 768): (64, 1, 128, 1, 2, 1, 0)})
+
+
+# ---- on the card -----------------------------------------------------------
+
+# the widths where the f32 route takes the wgmma core at the benchmark's
+# batch-128 shapes; C = 512 and 768 keep mma.sync there
+WGMMA_WIDTHS = (32, 48, 64, 96, 128, 192, 256, 384)
+BOTH_CORES = (32, 128, 256)  # the f32 widths that have both cores
+MAIN_T = {32: 32160, 48: 48240, 64: 16080, 96: 24120, 128: 4020, 192: 8040, 256: 1005,
+          384: 1608, 512: 201, 768: 201}  # a 2 s clip at each width, 16 or 24 kHz
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU build")
+    allow = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in float32
+    torch.backends.cudnn.allow_tf32 = False
+    yield torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = allow
+
+
+def _card_inputs(b, t, c, dtype, film, cond, seed):
+    g = torch.Generator().manual_seed(seed)
+
+    def rand(*shape, scale=1.0):
+        return ((torch.rand(shape, generator=g) * 2 - 1) * scale).to("cuda", dtype)
+
+    weights = []
+    for k in (5, 3, 3):
+        weights += [rand(k, c, c, scale=1 / math.sqrt(k * c)), rand(c, scale=0.5),
+                    (torch.rand(1, generator=g) * 0.5).cuda()]
+    return (rand(b, t, c), weights, rand(b, 2 * c) if film else None,
+            rand(b, t, c) if cond else None)
+
+
+def _card_case(entry, c, b, t, dtype, film, cond, core=None):
+    """One launch of ``entry`` against the plain version within the dtype's
+    card bound; the (core, C) it counted."""
+    p = max(1, 128 // c)
+    h, weights, nc, ic = _card_inputs(b, t, c, dtype, film, cond, seed=c + t + b)
+    conv_block.launches.clear()
+    conv_block.core_launches.clear()
+    if entry == "rows":
+        def pk(x):
+            return None if x is None else x.reshape(b, t // p, p * c)
+
+        if core:
+            got = conv_block._launch("fused_conv_chain_rows", h, weights, nc, ic, core=core)
+            got = tuple(pk(x) for x in got)
+        else:
+            got = conv_block.fused_conv_chain_rows(pk(h), p, c, *weights, noise_cond=nc,
+                                                   input_cond_rows=pk(ic))
+        torch.cuda.synchronize()
+        ref = conv_block.fused_conv_chain_rows_reference(pk(h), p, c, *weights, noise_cond=nc,
+                                                         input_cond_rows=pk(ic))
+    else:
+        got = conv_block._launch("fused_conv_chain", h, weights, nc, ic, core=core) if core \
+            else conv_block.fused_conv_chain(h, *weights, noise_cond=nc, input_cond=ic)
+        torch.cuda.synchronize()
+        ref = conv_block.fused_conv_chain_reference(h, *weights, noise_cond=nc, input_cond=ic)
+    for name, a, r in zip(("v", "cond_out"), got, ref):
+        assert a.shape == r.shape and a.dtype == dtype and a.is_contiguous()
+        diff, scale = (a.float() - r.float()).abs().max().item(), r.float().abs().max().item()
+        assert math.isfinite(diff) and diff <= CARD_TOL[dtype] * scale, (name, diff, scale)
+    full = {"rows": "fused_conv_chain_rows"}.get(entry, entry)
+    assert dict(conv_block.launches) == {
+        (full, conv_block.ROUTES[dtype][0], c, t, film, cond): 1}
+    (counted, n), = conv_block.core_launches.items()
+    assert n == 1 and counted[1] == c
+    return counted
+
+
+# (entry, batch, T, FiLM, cond): T = 1 and 201, 1004 (no tile divides it),
+# the 2 s length ("main"); the rows entry at T = P (one row); batch 1 and 128
+CARD_SHAPES = [("fused_conv_chain", 1, 1, True, True),
+               ("fused_conv_chain", 128, 201, False, False),
+               ("fused_conv_chain", 1, 1004, True, False),
+               ("fused_conv_chain", 1, "main", False, True),
+               ("fused_conv_chain", 128, "main", True, True),
+               ("rows", 1, "P", True, True),
+               ("rows", 128, 1004, False, True),
+               ("rows", 1, "main", True, False),
+               ("rows", 16, "main", False, False)]
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("entry,b,t,film,cond", CARD_SHAPES)
+@pytest.mark.parametrize("c", conv_block.WIDTHS)
+def test_f32_route_holds_the_gate_on_card(card, c, entry, b, t, film, cond):
+    """The f32 route on the core the table gives each shape, within the f32
+    gate (1e-4 max|plain|) of the plain version, at every width, both
+    entries, batch 1 and 128; the batch-128 2 s shapes run wgmma at
+    C = 32..384 and mma.sync at C = 512 and 768."""
+    t = {"main": MAIN_T[c], "P": max(1, 128 // c)}.get(t, t)
+    core = _card_case(entry, c, b, t, torch.float32, film, cond)
+    assert core[0] == conv_block.chain_core(torch.float32, b * t, c)
+    if (b, t) == (128, MAIN_T[c]):
+        assert core[0] == ("wgmma" if c in WGMMA_WIDTHS else "mma_sync")
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("core", conv_block.CORES)
+@pytest.mark.parametrize("c", BOTH_CORES)
+def test_each_f32_core_holds_the_gate_on_card(card, c, core):
+    """Either f32 core forced at every width that has both, batch 2 with a
+    partial last tile and at the 2 s length, FiLM and cond on: within the
+    f32 gate, counted under that core."""
+    assert conv_block.width_cores(torch.float32, c) == conv_block.CORES
+    for t in (1004, MAIN_T[c]):
+        assert _card_case("fused_conv_chain", c, 2, t, torch.float32, True, True,
+                          core=core) == (core, c)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("c", sorted(set(conv_block.WIDTHS) - set(BOTH_CORES)))
+def test_f32_widths_with_one_core_refuse_the_other_on_card(card, c):
+    """C = 48, 64, 96, 192 and 384 have only the wgmma core, 512 and 768
+    only mma_sync: forcing the other raises before any launch is counted."""
+    cores = conv_block.width_cores(torch.float32, c)
+    assert cores == (("wgmma",) if c in WGMMA_WIDTHS else ("mma_sync",))
+    (other,) = set(conv_block.CORES) - set(cores)
+    h, weights, nc, ic = _card_inputs(2, 9, c, torch.float32, False, False, seed=0)
+    conv_block.launches.clear()
+    conv_block.core_launches.clear()
+    with pytest.raises(RuntimeError, match=f"no {other} core at C={c}"):
+        conv_block._launch("fused_conv_chain", h, weights, nc, ic, core=other)
+    assert not conv_block.launches and not conv_block.core_launches
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("c", conv_block.WIDTHS)
+def test_bf16_route_keeps_mma_sync_on_card(card, c):
+    """The bf16 route runs the mma.sync core at every width and shape (its
+    kernel instance and table are the ones it had before the f32 route took
+    wgmma, untouched by construction), within its bound of the plain
+    version; wgmma is refused for it."""
+    for b, t in ((1, 1), (2, 1004), (128, 201)):
+        assert _card_case("fused_conv_chain", c, b, t, torch.bfloat16, True, True) == (
+            "mma_sync", c)
+    h, weights, nc, ic = _card_inputs(1, 9, c, torch.bfloat16, False, False, seed=0)
+    with pytest.raises(RuntimeError, match="wgmma"):
+        conv_block._launch("fused_conv_chain", h, weights, nc, ic, core="wgmma")

@@ -16,18 +16,19 @@ Phases, each of which raises (exit code != 0) on failure:
    main path gives the width, T = 1, T = 5 (below a tile) and T = 1004 (a
    partial last tile on every route), FiLM and cond on and off.  One line
    per (C, dtype).
-2b. The same for the kernel's rows entry (``fused_conv_chain_rows``) on
-   lane-packed rows (B, T/P, P*C), P = max(1, 128 // C), at T = P, 5P, 1004
-   and the main path's length.
+2b. The same for the kernel's rows entry (``fused_conv_chain_rows``, the
+   JAX package's API, which no ConvBlock calls) on lane-packed rows
+   (B, T/P, P*C), P = max(1, 128 // C), at T = P, 5P, 1004 and the main
+   path's length.
 3. Run the main path at full width: ``universepp(16000)`` with seeded random
    weights, weight norm folded, ``enhance`` on 2 x 2 s at 16 kHz, 8 steps,
    float32, once through the kernel and once through the unfused chain, on
    the same noise.  Both must agree, and the kernel run must launch the
-   f32 route 94 times: at this batch (<= 64) through the rows entry at
-   C < 128 and through the unpacked entry at C >= 128.  Then the same
-   ``enhance`` with bf16 networks must launch the bf16 route 94 times with
-   the same split.  The launches are counted by (entry, route, C, T, FiLM,
-   cond).  The f32 run also launches the rate-change kernel
+   f32 route 94 times, every launch through the main entry
+   (``fused_conv_chain``).  Then the same ``enhance`` with bf16 networks
+   must launch the bf16 route 94 times.  The launches are counted by
+   (entry, route, C, T, FiLM, cond).  The f32 run also launches the
+   rate-change kernel
    (``rate_change_tc.cu``) 72 times, 4 down and 4 up blocks in each of the 8
    score passes and the conditioner, the score network's 64 with the
    low-pass; the bf16 run launches it 0 times.
@@ -36,8 +37,8 @@ Phases, each of which raises (exit code != 0) on failure:
    node beside it, loaded by ``load_model`` through the port's registry
    (EMA applied, folded); ``enhance`` of 2 x 2 s at 24 kHz, 8 steps, f32,
    through the kernel and the unfused chain on the same noise: they agree
-   within 1e-4, with 94 launches at C = 48..768 (C = 48 on the rows
-   entry) and 72 rate-change launches (64 low-passed); one 2 s request
+   within 1e-4, with 94 launches at C = 48..768 and 72 rate-change
+   launches (64 low-passed); one 2 s request
    served over HTTP (94 and 72 launches).  One f32 ``enhance`` at batch
    128 counted by core must run wgmma at C = 48..384 and mma.sync at 768.
    Then the kernel, its plain version and the unfused chain alone in bf16
@@ -54,7 +55,7 @@ Phases, each of which raises (exit code != 0) on failure:
    the rate-change kernel and with the module (PyTorch's default TF32, as
    the benchmark runs): device events, busy time and traced wall per call.
 4. Time ``enhance`` in bench.py's setting (bf16 networks, batch 128 x 2 s,
-   8 steps, every block through the unpacked entry) with the kernel and with
+   8 steps, every block through the main entry) with the kernel and with
    the unfused chain, and the same ``enhance`` with f32 networks (the
    server's default) both ways; then time the kernel (and its f32 route),
    its plain version and the unfused chain alone at each (C, T, FiLM, cond)
@@ -67,10 +68,11 @@ Phases, each of which raises (exit code != 0) on failure:
    ``[cores]`` lines give each width's ms per enhance on the table's core
    and on mma.sync beside the 3xTF32 bound.  One f32 ``enhance`` at batch
    128 counted by core must run wgmma at C = 32..256 and mma.sync at 512.
-4b. Time bf16 ``enhance`` on 2 s clips at batch 1 and 16; then the rows
-   entry, its plain version and the unfused chain alone at each rows shape
-   of phase 3 at batch 1 and 16, weighted by launches, the f32 route on
-   each core as in phase 4.  Then, at each width with both f32 cores
+4b. Time bf16 ``enhance`` on 2 s clips at batch 1 and 16; then the main
+   entry, its plain version and the unfused chain alone at each shape of
+   phase 3 with C < 128 (those the JAX package packs at these batches) at
+   batch 1 and 16, weighted by launches, the f32 route on each core as in
+   phase 4.  Then, at each width with both f32 cores
    (C = 32, 128, 256) at its 2 s length, both cores alone at batch 1, 2,
    4, 8 and 16: where the table's threshold (MIN_ROWS) falls against the
    measured crossing.
@@ -84,7 +86,8 @@ Phases, each of which raises (exit code != 0) on failure:
    2 s warm-up grid), and check: a lone 2 s request equals ``enhance`` of
    its bucket-padded batch with the service generator's state; 12
    concurrent requests (13 clips, one stereo) all answer 200 with their
-   shape; ``/stats`` counts every clip; the rows entry launched.  Then 5
+   shape; ``/stats`` counts every clip; every launch on the main entry.
+   Then 5
    lone 2 s requests give the serving latency.
 7. The enhance CLI (``bin/enhance.py``'s ``main`` in this process, default
    device, ``--batch-size 8``, 8 steps, f32) on phase 6's checkpoint, whose
@@ -95,7 +98,7 @@ Phases, each of which raises (exit code != 0) on failure:
    ``--chunk-seconds 2`` on the 7 s file, and ``--ensemble 4
    --ensemble_stat median --warm_start 3`` (64 per batch).  Each writes
    every file with its rate, length, channels and container, finite,
-   through both entries, and each run's lossless files, every bucket and
+   through the main entry, and each run's lossless files, every bucket and
    every channel, equal the CLI's batches (or chunks) recomputed by
    ``enhance`` with the kernels off on a generator seeded as the CLI seeds
    it, cut and resampled as the CLI writes them (<= 1e-4 + 1/32767, the
@@ -129,7 +132,7 @@ Phases, each of which raises (exit code != 0) on failure:
    val clips of 1.3-6.1 s at batch 1, 8 test clips): the val/* rows of
    ``metrics.jsonl``, index, best and last.json, test_summary.json; each
    validation launches the f32 route 5 * 24 per val clip plus 94 per
-   enhanced clip (the first 4), through both entries, the test 94 per
+   enhanced clip (the first 4), through the main entry, the test 94 per
    clip; one validation through the kernel against the same with the
    kernels off (TF32 off: score bins <= 1e-4 relative, each enhanced clip
    <= 1e-4 of its max|ref|), and one on the longest clip traced with
@@ -148,7 +151,7 @@ Phases, each of which raises (exit code != 0) on failure:
    of each tensor's largest).  (c) Its validation at the last step (4
    val clips of 1.3-3.1 s at batch 1) and test (2 clips): launches by the
    formula counted from the model's ConvBlocks (5 x 24 x 4 + 94 x 4, 94
-   per test clip), both entries; one validation through the kernel against
+   per test clip), the main entry; one validation through the kernel against
    the kernels off (score bins <= 1e-4 relative, clips <= 1e-4 of
    max|ref|); a run resumed from the middle checkpoint restores its state
    (the MDN loss modules included) bit for bit.  (d) ``load_model`` on the
@@ -175,7 +178,7 @@ Phases, each of which raises (exit code != 0) on failure:
    gradients <= 1e-2 of each tensor's largest plus 1e-6 of the largest.
    (d) ``load_model`` on the fine-tuned checkpoint (a UniverseLoRA):
    ``enhance`` of 2 x 2 s launches 0; ``merge_lora``'s model launches 94
-   through both entries in f32 and bf16 and equals the adapters' (f32 <=
+   through the main entry in f32 and bf16 and equals the adapters' (f32 <=
    1e-4 of max|ref|); audio-s/s at batch 128 x 2 s, merged against
    adapters, bf16 and f32; one file through the enhance CLI (0 launches).
    (e) UNIVERSE++ with a MultiResL1SpecLoss aux loss whose warm-up (0,
@@ -265,6 +268,8 @@ import wave
 import numpy as np
 import torch
 
+from benchmark.common.trace import kernel_group, union_length
+
 FS = 16000
 CLIP_S = 2.0
 DEVICE = "cuda"
@@ -273,6 +278,7 @@ N_STEPS = 8
 TIMING_BATCH = 128
 SERVE_BATCH = 16
 CROSSOVER_BATCHES = (1, 2, 4, 8, 16)  # phase 4b's rows sweep of the f32 cores
+ENTRY = "fused_conv_chain"  # the one entry ConvBlock.forward calls
 SOURCES = ("conv_block_tc", "rate_change_tc")
 # ConvBlock width -> length on a 2 s clip: 16 kHz (universepp(16000)) and
 # 24 kHz (config/model/universepp_24k.yaml)
@@ -325,18 +331,6 @@ NARROW_ORIG_OVERRIDES = ["model.score_model.n_channels=8", "model.score_model.no
                          "model.condition_model.n_mels=20",
                          f"datamodule.datasets.vb-train-16k.audio_len={NARROW_T / FS}"]
 
-# first matching substring of a device kernel's lower-cased name names its
-# group; casts and contiguous copies are copy kernels, pads a fill and a copy
-GROUPS = (
-    ("fused ConvBlock kernel", ("conv_block_kernel", "conv_block_tc_kernel")),
-    ("GRU", ("rnn", "gru")),
-    ("FFT", ("fft",)),
-    ("cuDNN / library conv", ("conv", "fprop", "implicit", "winograd", "cudnn")),
-    ("GEMM", ("gemm", "cutlass", "nvjet")),
-    ("reduction", ("reduce",)),
-    ("copy / cast / pad", ("copy", "fill")),
-    ("elementwise", ("elementwise",)),
-)
 # PyTorch ops whose device time (children included) says which layer issues
 # the copies, casts and pads
 PROFILE_OPS = ("aten::convolution", "aten::contiguous", "aten::_to_copy",
@@ -449,12 +443,11 @@ def by_route(counts) -> dict:
     return out
 
 
-def by_shape(counts, entry=None) -> dict:
-    """Launches by (C, T, FiLM, cond), of one entry or of all."""
+def by_shape(counts) -> dict:
+    """Launches by (C, T, FiLM, cond)."""
     out = {}
-    for (e, _, *shape), n in counts.items():
-        if entry in (None, e):
-            out[tuple(shape)] = out.get(tuple(shape), 0) + n
+    for (_, _, *shape), n in counts.items():
+        out[tuple(shape)] = out.get(tuple(shape), 0) + n
     return out
 
 
@@ -583,10 +576,9 @@ def low_passed(rate_counts) -> int:
 
 def check_path(tag, counts, widths, route, out, t):
     """A main-path run of ``counted_enhance``: its output's shape and values,
-    and its launches: one per ConvBlock, all on ``route``, at every width of
-    the model, the rows entry exactly where P = 128 // C > 1 (this batch is
-    <= 64); the rate-change kernel RATE_LAUNCHES times in f32, never in
-    bf16.  Returns the rate-change launches."""
+    and its launches: one per ConvBlock, all on ``route`` through the main
+    entry, at every width of the model; the rate-change kernel RATE_LAUNCHES
+    times in f32, never in bf16.  Returns the rate-change launches."""
     from open_universe_tpu_torch.ops.kernels import rate_change
 
     launches, rate = sum(counts.values()), dict(rate_change.launches)
@@ -601,12 +593,9 @@ def check_path(tag, counts, widths, route, out, t):
         raise AssertionError(f"{tag}: enhance output has the wrong shape or is not finite")
     if launches != PATH_LAUNCHES:
         raise AssertionError(f"{tag}: expected {PATH_LAUNCHES} kernel launches, counted {launches}")
-    if {k[2] for k in counts} != set(widths) or set(by_route(counts)) != {route}:
+    if {k[2] for k in counts} != set(widths) or set(by_route(counts)) != {route} \
+            or set(by_entry(counts)) != {ENTRY}:
         raise AssertionError(f"{tag}: kernel launched as {sorted(counts)}")
-    wrong = [k for k in counts
-             if (k[0] == "fused_conv_chain_rows") != (128 // k[2] > 1)]
-    if wrong or len(by_entry(counts)) != 2:
-        raise AssertionError(f"{tag}: launches split between the entries as {counts}")
     if sum(rate.values()) != (RATE_LAUNCHES if route == F32 else 0):
         raise AssertionError(f"{tag}: rate-change kernel launched as {rate}")
     return rate
@@ -873,8 +862,8 @@ def chain_bound(batch, t, c, dtype, tensors):
     return moved / PEAK_BYTES_PER_S * 1e3, 22.0 * batch * t * c * c / PEAK_FLOPS[dtype] * 1e3
 
 
-def time_shapes(shape_counts, batch, rows=False, tag=None):
-    """The kernel entry, its plain version and the unfused chain alone at
+def time_shapes(shape_counts, batch, tag="timing"):
+    """The kernel's main entry, its plain version and the unfused chain at
     each (C, T, FiLM, cond) of shape_counts at this batch, in bf16 and in f32
     (3xTF32); one dict per shape with its launches, bounds, TFLOP/s and
     bound share (bf16 keys bare, f32 keys f32_*).  f32 runs on the core the
@@ -887,39 +876,26 @@ def time_shapes(shape_counts, batch, rows=False, tag=None):
     from open_universe_tpu_torch.ops.kernels import conv_block
     from open_universe_tpu_torch.utils.convert import fold_weight_norm
 
-    tag = tag or ("rows" if rows else "timing")
     shapes = []
     for (c, t_c, film, cond), n in sorted(shape_counts.items()):
-        p = max(1, 128 // c)
         block = fold_weight_norm(init_weights(ConvBlock(c, weight_norm=True))).to(DEVICE)
         flops = 22.0 * batch * t_c * c * c
         shape = dict(C=c, T=t_c, film=film, cond=cond, launches=n)
         for dtype, key in ((torch.bfloat16, ""), (torch.float32, "f32_")):
             h, weights, nc, ic = chain_inputs(batch, t_c, c, dtype, film, cond)
-            hr, icr = pack(h, c), pack(ic, c)
-            if rows:
-                def kernel():
-                    return conv_block.fused_conv_chain_rows(hr, p, c, *weights, noise_cond=nc,
-                                                            input_cond_rows=icr)
 
-                def plain():
-                    return conv_block.fused_conv_chain_rows_reference(
-                        hr, p, c, *weights, noise_cond=nc, input_cond_rows=icr)
-            else:
-                def kernel():
-                    return conv_block.fused_conv_chain(h, *weights, noise_cond=nc,
-                                                       input_cond=ic)
+            def kernel():
+                return conv_block.fused_conv_chain(h, *weights, noise_cond=nc, input_cond=ic)
 
-                def plain():
-                    return conv_block.fused_conv_chain_reference(h, *weights, noise_cond=nc,
-                                                                 input_cond=ic)
+            def plain():
+                return conv_block.fused_conv_chain_reference(h, *weights, noise_cond=nc,
+                                                             input_cond=ic)
 
             def unfused():
                 block(h, noise_cond=nc, input_cond=ic)
 
             ms, plain_ms = cuda_ms(kernel, 10), cuda_ms(plain, 3 if key else 5)
             if key:
-                entry = "fused_conv_chain_rows" if rows else "fused_conv_chain"
                 core = conv_block.chain_core(dtype, batch * t_c, c)
                 want = plain()
                 gate(f"[{tag}] C={c} T={t_c} B={batch} f32 {core}", kernel(), want, dtype)
@@ -927,10 +903,9 @@ def time_shapes(shape_counts, batch, rows=False, tag=None):
                 on[core] = ms
                 for other in set(conv_block.width_cores(dtype, c)) - {core}:
                     def forced():
-                        return conv_block._launch(entry, h, weights, nc, ic, core=other)
+                        return conv_block._launch(ENTRY, h, weights, nc, ic, core=other)
 
-                    got = tuple(x.reshape(w.shape) for x, w in zip(forced(), want))
-                    gate(f"[{tag}] C={c} T={t_c} B={batch} f32 {other}", got, want, dtype)
+                    gate(f"[{tag}] C={c} T={t_c} B={batch} f32 {other}", forced(), want, dtype)
                     on[other] = cuda_ms(forced, 10)
                 del want
                 shape.update(f32_core=core, f32_mma_sync_ms=on["mma_sync"],
@@ -955,7 +930,7 @@ def time_shapes(shape_counts, batch, rows=False, tag=None):
                 + (f"; {shape['f32_core']} core; mma.sync "
                    f"{shape['f32_mma_sync_ms'] or float('nan'):.4f}, "
                    f"wgmma {shape['f32_wgmma_ms'] or float('nan'):.4f}" if key else ""))
-            del h, weights, nc, ic, hr, icr
+            del h, weights, nc, ic
         shapes.append(shape)
         del block
     return shapes
@@ -1014,10 +989,10 @@ def phase_timing(model, shape_counts):
     return rates, time_shapes(shape_counts, batch), mix, noise
 
 
-def phase_small_batch(model, rows_shapes):
-    """bf16 enhance at batch 1 and SERVE_BATCH, twice each; then the rows
-    entry alone at each of its shapes in phase 3 at batch 1 and SERVE_BATCH
-    (the second's shapes are returned, the first's logged)."""
+def phase_small_batch(model, small_shapes):
+    """bf16 enhance at batch 1 and SERVE_BATCH, twice each; then the main
+    entry alone at each of small_shapes at batch 1 and SERVE_BATCH (the
+    second's shapes are returned, the first's logged)."""
     t = int(CLIP_S * FS)
     rates, inputs = {}, {}
     for batch in (1, SERVE_BATCH, SERVE_BATCH, 1):
@@ -1031,8 +1006,8 @@ def phase_small_batch(model, rows_shapes):
         log(f"[small] enhance batch {batch} x {CLIP_S} s bf16: median "
             f"{s * 1e3:.2f} ms -> {batch * CLIP_S / s:.2f} audio-s/s")
 
-    time_shapes(rows_shapes, 1, rows=True, tag="rows b1")
-    return rates, time_shapes(rows_shapes, SERVE_BATCH, rows=True), inputs[1]
+    time_shapes(small_shapes, 1, tag="small b1")
+    return rates, time_shapes(small_shapes, SERVE_BATCH, tag=f"small b{SERVE_BATCH}"), inputs[1]
 
 
 def phase_crossover():
@@ -1049,8 +1024,8 @@ def phase_crossover():
         t = {**WIDTH_LENGTHS, **WIDTH_LENGTHS_24K}[c]
         for batch in CROSSOVER_BATCHES:
             h, weights, nc, ic = chain_inputs(batch, t, c, torch.float32, True, True)
-            ms = {core: cuda_ms(lambda: conv_block._launch("fused_conv_chain", h, weights, nc,
-                                                           ic, core=core), 10)
+            ms = {core: cuda_ms(lambda: conv_block._launch(ENTRY, h, weights, nc, ic,
+                                                           core=core), 10)
                   for core in conv_block.CORES}
             table = conv_block.chain_core(torch.float32, batch * t, c)
             faster = min(ms, key=ms.get)
@@ -1140,7 +1115,7 @@ def get_json(url: str):
 
 def phase_serving():
     """The serving path end to end on the card; returns its numbers and the
-    launches by entry counted over the served requests."""
+    launches by entry counted over the served requests (the main one only)."""
     from open_universe_tpu_torch.bin.serve import make_server
     from open_universe_tpu_torch.inference.model_loader import load_model
     from open_universe_tpu_torch.models.presets import universepp
@@ -1231,8 +1206,8 @@ def phase_serving():
             f"{latencies[2] * 1e3:.1f} ms (all {[round(x * 1e3, 1) for x in latencies]}); "
             f"device_realtime_factor {stats['device_realtime_factor']:.2f}; "
             f"launches by entry while serving {entries}")
-        if not entries.get("fused_conv_chain_rows"):
-            raise AssertionError("the rows entry did not launch while serving")
+        if set(entries) != {ENTRY}:
+            raise AssertionError(f"served requests launched the kernel as {entries}")
 
         # the first response against enhance of its bucket-padded batch with
         # the generator state the service started from
@@ -1433,7 +1408,7 @@ def phase_cli():
         src = os.path.join(tmp, "in")
         write_tree(src, files)
         model = load_model(ckpt, device=DEVICE)
-        # one batch of 1-3 rows per 1 s bucket: the rows entry at C = 32, 64
+        # one batch of 1-3 rows per 1 s bucket
         n_batches = len(cli._bucket([Path(src, name) for name, *_ in files], FS,
                                     CLI_BATCH, FS))
 
@@ -1445,7 +1420,7 @@ def phase_cli():
             outs = check_outputs(tag, out, inputs)
             launches[tag] = by_entry(counts)
             if ((per_batch and sum(counts.values()) != per_batch * n_batches)
-                    or len(launches[tag]) != 2 or set(by_route(counts)) != {F32}):
+                    or set(launches[tag]) != {ENTRY} or set(by_route(counts)) != {F32}):
                 raise AssertionError(f"cli {tag}: {n_batches} batches launched the "
                                      f"kernel as {counts}")
             result[tag]["vs_unfused"] = against_unfused(
@@ -1468,31 +1443,10 @@ def phase_cli():
     return result, launches
 
 
-def kernel_group(name: str) -> str:
-    low = name.lower()
-    for group, keys in GROUPS:
-        if any(k in low for k in keys):
-            return group
-    return "other"
-
-
-def busy_ms(intervals) -> float:
-    """Length of the union of (start, end) intervals, in us, as ms."""
-    total, end = 0.0, float("-inf")
-    for s, e in sorted(intervals):
-        if s > end:
-            total += e - s
-            end = e
-        elif e > end:
-            total += e - end
-            end = e
-    return total / 1e3
-
-
 def device_profile(prefix, fn) -> dict:
     """Trace fn() with torch.profiler: its wall time, device time by kernel
-    group and under PROFILE_OPS, device busy time and idle share, logged
-    after ``prefix``."""
+    group (the benchmark's, ``benchmark/common/trace.py``) and under
+    PROFILE_OPS, device busy time and idle share, logged after ``prefix``."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1509,7 +1463,7 @@ def device_profile(prefix, fn) -> dict:
         groups[group] = groups.get(group, 0.0) + ms
         if group == "other":
             other[e.name] = other.get(e.name, 0.0) + ms
-    busy = busy_ms((e.time_range.start, e.time_range.end) for e in events)
+    busy = union_length((e.time_range.start, e.time_range.end) for e in events) / 1e3
     ops = {row.key: row.device_time_total / 1e3
            for row in prof.key_averages() if row.key in PROFILE_OPS}
     log(f"{prefix}: traced wall {wall_ms:.1f} ms, device busy {busy:.1f} ms, idle share "
@@ -1892,12 +1846,12 @@ def validation_launches(n_val: int) -> int:
 
 
 def check_launches(tag, counts, want):
-    """All of ``want`` launches on the f32 route, through both entries."""
+    """All of ``want`` launches on the f32 route, through the main entry."""
     n = sum(counts.values())
     log(f"[{tag}] {n} launches {by_entry(counts)} {by_route(counts)} (expected {want})")
-    if n != want or set(by_route(counts)) != {F32} or len(by_entry(counts)) != 2:
+    if n != want or set(by_route(counts)) != {F32} or set(by_entry(counts)) != {ENTRY}:
         raise AssertionError(f"{tag}: launched {by_entry(counts)} {by_route(counts)}, "
-                             f"expected {want} on {F32} through both entries")
+                             f"expected {want} on {F32} through {ENTRY}")
 
 
 class EstRecorder:
@@ -1959,7 +1913,7 @@ def phase_validation():
     and writing a checkpoint every VAL_EVERY, then test=true; then resumed
     from the step-2 checkpoint to step 4.  Checks the val/* rows, index,
     best, last and test_summary.json, the launches of each validation
-    (validation_launches, all f32, both entries) and of the test, the
+    (validation_launches, all f32, the main entry) and of the test, the
     restored state against the checkpoint, and one validation through the
     kernel against the same with the kernels off (TF32 off): score bins <=
     1e-4 relative, each enhanced clip <= 1e-4 of its max|ref|."""
@@ -2153,8 +2107,8 @@ def phase_original_training():
     for ORIG_STEPS steps on synthetic pairs, a checkpoint at the middle step
     and the last, a validation at the last, then the test.  Checks the
     losses (finite), the launches of the steps (0) and of the validation
-    and test (by the formula, counted from the model's ConvBlocks, both
-    entries), one validation through the kernel against the same with the
+    and test (by the formula, counted from the model's ConvBlocks, the main
+    entry), one validation through the kernel against the same with the
     kernels off (TF32 off), and the state a run resumed from the middle
     checkpoint restores.  Returns its numbers and the last checkpoint."""
     import glob
@@ -2747,7 +2701,7 @@ def phase_lora_step_vs_cpu(phoneme=("model.losses.phonemeloss=null",), name="lor
 def phase_lora_checkpoint(ckpt: str):
     """11d: load_model on the fine-tuned checkpoint (a UniverseLoRA, EMA
     applied): enhance of 2 x 2 s launches 0; merge_lora's plain model
-    launches 94 through both entries (f32, then bf16) and equals the adapter
+    launches 94 through the main entry (f32, then bf16) and equals the adapter
     model's enhance on the same noise (f32: <= 1e-4 of max|ref|; bf16 logged:
     the two round the weights at other points); audio-s/s at batch 128 x
     2 s, merged (kernel) against adapters (unfused), bf16 and f32 (median of
@@ -3278,7 +3232,7 @@ def phase_data_parallel():
         f"{first['steps_launches']}; checkpoints {[os.path.basename(c) for c in ckpts]}; "
         f"not float32 {first['not_float32'][:3]}; {first['torchrun_wall_s']:.1f} s")
     if (first["world"], first["backend"]) != (1, "nccl") or len(train_rows) != RUN_STEPS \
-            or len(vals) != 1 or routes != want or len(vals[0]["entries"]) != 2 \
+            or len(vals) != 1 or routes != want or set(vals[0]["entries"]) != {ENTRY} \
             or first["steps_launches"] \
             or first["not_float32"] or len(ckpts) != 2 or not all(
                 np.isfinite(v) for r in train_rows for k, v in r.items() if k.startswith("train/")):
@@ -3898,12 +3852,10 @@ def main() -> int:
     rate = phase_rate_change(model, rate16, rate24)
     lap("3e rate change")
     main_counts = {**counts, **counts_bf16}  # keys differ by route
-    entries = by_entry(main_counts)
-    # at batch 128 every block takes the unpacked entry, at these shapes
     rates, shapes, mix, noise = phase_timing(model, by_shape(counts))
     lap("4 timing")
-    small_rates, rows_shapes, (mix1, noise1) = phase_small_batch(
-        model, by_shape(counts, "fused_conv_chain_rows"))
+    small_rates, small_shapes, (mix1, noise1) = phase_small_batch(
+        model, {k: n for k, n in by_shape(counts).items() if k[0] < 128})
     crossover = phase_crossover()
     lap("4b small batch")
     profiled = phase_profile(model, mix, noise)
@@ -3964,9 +3916,6 @@ def main() -> int:
     lap("14 tensor parallelism")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
-    def cli_entry(entry):
-        return {run: n.get(entry, 0) for run, n in cli_launches.items()}
-
     def total(key, shapes=shapes):
         return sum(s[key] * s["launches"] for s in shapes)
 
@@ -3994,27 +3943,24 @@ def main() -> int:
         return sum(max(s["f32_bytes_ms"], s["f32_ops_ms"] * PEAK_FLOPS[torch.float32]
                        / CUDA_CORE_F32_FLOPS) * s["launches"] for s in shapes)
 
-    def routes(entry):
-        return {BF16: "open_universe_tpu_torch/csrc/conv_block_tc.cu",
-                F32: "open_universe_tpu_torch/csrc/conv_block_tc.cu",
-                "launches": by_route({k: n for k, n in main_counts.items()
-                                      if k[0] == entry})}
 
     kernel_line = {"kernels": [{
         "name": "fused_conv_chain",
         "route": "cuda",
         "source": "open_universe_tpu_torch/csrc/conv_block_tc.cu",
         "replaces": "open_universe_tpu/ops/pallas/conv_block.py:180",
-        # launches in phase 3's two runs (batch 2, f32 and bf16: the blocks
-        # of C >= 128 each time)
-        "launches": entries["fused_conv_chain"],
+        # launches in phase 3's two runs (batch 2, f32 and bf16: every block
+        # each time)
+        "launches": sum(main_counts.values()),
         "max_abs_err": max(worst.values()),
         # per enhance of batch 128 x 2 s in bf16 (all 94 blocks, tensor-core
         # route): each (C, T, FiLM, cond) timed alone, times its launches in
         # phase 3; the f32_* keys are the 3xTF32 route at the same shapes
         **sums(shapes), **sums(shapes, "f32_"),
         "f32_cuda_core_bound_ms": cuda_core_bound(shapes),
-        "routes": routes("fused_conv_chain"),
+        "routes": {BF16: "open_universe_tpu_torch/csrc/conv_block_tc.cu",
+                   F32: "open_universe_tpu_torch/csrc/conv_block_tc.cu",
+                   "launches": by_route(main_counts)},
         "max_abs_err_by_route": worst,
         "widths": list(WIDTH_LENGTHS) + list(WIDTH_LENGTHS_24K),
         "audio_s_per_s": rates,
@@ -4028,19 +3974,31 @@ def main() -> int:
         "universepp_24k": {**hz24, **sums(shapes_24k), **sums(shapes_24k, "f32_"),
                            "f32_cuda_core_bound_ms": cuda_core_bound(shapes_24k)},
         "profile": profiled,
-        # launches by the enhance CLI's runs of phase 7
-        "cli_launches": cli_entry("fused_conv_chain"),
+        # phase 4b: enhance at batch 1 and 16; per enhance of batch 16 x 2 s,
+        # the shapes of C < 128 timed alone as above; both f32 cores alone
+        # at batch 1..16 where a width has both
+        "enhance_small_batch": small_rates,
+        "batch16_small_widths": {**sums(small_shapes), **sums(small_shapes, "f32_"),
+                                 "f32_cuda_core_bound_ms": cuda_core_bound(small_shapes)},
+        "core_crossover": crossover,
+        "profile_batch1": profiled_1,
+        # phase 6: the server and the launches of its requests
+        "serving": served,
+        "serving_launches": serve_entries,
+        # phase 7: the enhance CLI's runs and their launches
+        "cli": cli,
+        "cli_launches": cli_launches,
         # phase 3d: what the kernel refuses runs unfused; phase 7b: cuDNN TF32
         "step0": step0, "tf32_inference": tf32,
         # phase 8: the training entry point (no launch in its steps; the
         # kernel has no backward) and its checkpoint enhanced through the kernel
         "training": training, "trained_checkpoint_enhance": trained,
         # phase 9: validation and test of the entry point (launches per
-        # validation and per test, both entries), kernel vs kernels off
+        # validation and per test), kernel vs kernels off
         "validation": validation,
         # phase 10: the plain UNIVERSE (generic score path): training (no
-        # launch in its steps), its validation and test (launches through
-        # both entries), its trained checkpoint's enhance and audio-s/s,
+        # launch in its steps), its validation and test (launches), its
+        # trained checkpoint's enhance and audio-s/s,
         # the CompressedMagSTFT models against the CPU
         "universe_original": original,
         # phase 11: LoRA fine-tuning (no launch while adapters are attached:
@@ -4065,56 +4023,11 @@ def main() -> int:
         "route": "cuda",
         "source": "open_universe_tpu_torch/csrc/conv_block_tc.cu",
         "replaces": "open_universe_tpu/ops/pallas/conv_block.py:216",
-        # launches in phase 3's two runs (C = 32, 64)
-        "launches": entries["fused_conv_chain_rows"],
+        # the JAX package's rows API on the same kernel: phase 2b only; no
+        # ConvBlock calls it (0 launches in phase 3)
+        "launches": sum(n for k, n in main_counts.items() if k[0] != ENTRY),
         "max_abs_err": max(worst_rows.values()),
-        # per enhance of batch 16 x 2 s in bf16 (the blocks of C < 128):
-        # each (C, T, FiLM, cond) timed alone, times its launches in phase 3;
-        # f32_* as above
-        **sums(rows_shapes), **sums(rows_shapes, "f32_"),
-        "f32_cuda_core_bound_ms": cuda_core_bound(rows_shapes),
-        "routes": routes("fused_conv_chain_rows"),
         "max_abs_err_by_route": worst_rows,
-        "launches_per_enhance": entries,
-        "serving_launches": serve_entries,
-        "enhance_small_batch": small_rates,
-        # phase 4b: both f32 cores alone at batch 1..16 where a width has both
-        "core_crossover": crossover,
-        "profile_batch1": profiled_1,
-        "serving": served,
-        "cli_launches": cli_entry("fused_conv_chain_rows"),
-        "cli": cli,
-        "validation_launches": [v.get("fused_conv_chain_rows", 0)
-                                for v in validation["validation_launches"]],
-        "test_launches": validation["test_launches"].get("fused_conv_chain_rows", 0),
-        # phase 10: the plain UNIVERSE's validation, test and trained
-        # checkpoint's enhance through this entry
-        "universe_original_launches": {
-            "steps": original["step_launches"],
-            "validation": original["validation_launches"].get("fused_conv_chain_rows", 0),
-            "test": original["test_launches"].get("fused_conv_chain_rows", 0),
-            **{f"trained_enhance_{k}": original["trained_checkpoint"][k]["launches"].get(
-                "fused_conv_chain_rows", 0) for k in ("f32", "bf16")}},
-        # phase 11: launches with LoRA adapters attached (0) and per enhance
-        # of the merged fine-tuned checkpoint through this entry
-        "lora_launches": {**lora["launches"], **{
-            f"merged_enhance_{k}": lora["checkpoint"][k]["launches"].get(
-                "fused_conv_chain_rows", 0) for k in ("f32", "bf16")}},
-        # phase 12: launches through this entry (0 in every training step)
-        "scale_launches": {
-            "steps": {k: v["launches"] for k, v in scale["arms"].items()},
-            "torchrun_validation": scale["data_parallel"]["torchrun"][
-                "validation_entries"].get("fused_conv_chain_rows", 0),
-            "torchrun_checkpoint_enhance": scale["data_parallel"]["torchrun"][
-                "trained_checkpoint_enhance"]["launches"].get("fused_conv_chain_rows", 0),
-            "parity_cli": scale["clis"]["parity_launches"].get("fused_conv_chain_rows", 0)},
-        # phase 13: LoRA with the phoneme loss (0 launches in steps and validation)
-        "phoneme_lora_launches": phoneme["lora"]["launches"],
-        # phase 14: the tp ranks' steps (0) and their checkpoint's enhance
-        "tensor_parallel_launches": {
-            "per_step": tensor_parallel["launches_per_step"],
-            "checkpoint_enhance": tensor_parallel["trained_checkpoint_enhance"][
-                "launches"].get("fused_conv_chain_rows", 0)},
     }, {
         "name": "rate_change",
         "route": "cuda",
@@ -4137,7 +4050,7 @@ def main() -> int:
         "enhance_profiles": rate["profiles"],
     }]}
     for tag, sh in (("batch 128, 16 kHz", shapes), ("batch 128, 24 kHz", shapes_24k),
-                    ("rows, batch 16", rows_shapes)):
+                    ("C < 128, batch 16", small_shapes)):
         f32 = sums(sh, "f32_")
         log(f"[bounds] f32 per enhance, {tag}: kernel {total('f32_ms', sh):.2f} ms "
             f"({f32['f32_mma_sync_ms']:.2f} on mma.sync at C = {f32['f32_mma_sync_widths']}), "

@@ -7,9 +7,7 @@
 
 Concurrent POSTs are gathered for a short window, grouped into length
 buckets, padded to a power-of-two number of rows and enhanced in one
-``model.enhance`` call on the device.  At batch <= 64 the ConvBlocks of
-fewer than 128 channels launch the kernel's rows entry, as the JAX package's
-packed mode does (``nn/blocks.py``).
+``model.enhance`` call on the device.
 
 API:
   POST /enhance   body = a wav/flac/mp3 file -> 200 with a WAV body at the

@@ -3,7 +3,7 @@
 // the widths of WgTile and on mma.sync m16n8k8 at the others).
 //
 // Replaces the Pallas TPU kernel open_universe_tpu/ops/pallas/conv_block.py
-// (fused_conv_chain / fused_conv_chain_rows, body `_kernel`).  For h
+// (both of its entries, body `_kernel`).  For h
 // (B, T, C) it computes, with the TPU kernel's rounding points (to the
 // storage type after FiLM, after each PReLU product, after conv3a, and on
 // output; f32 sums; f32 PReLU slopes), which are exact in f32:

@@ -6,13 +6,8 @@ binomial anti-aliasing filter (JAX package ``nn/blocks.py``).  An eligible
 ConvBlock runs its conv chain as one fused kernel
 (``ops/kernels/conv_block.py``), and its rate change (PReLU, the strided or
 transposed conv, and UNIVERSE++'s low-pass) as another
-(``ops/kernels/rate_change.py``).
-
-The JAX package runs batches of up to 64 rows lane-packed, where a block of
-C < 128 channels takes the kernel's rows entry on (B, T/P, P*C),
-P = 128 // C.  Those rows hold the same bytes as (B, T, C), so ``forward``
-keeps that rule by calling the rows entry on a view: the same kernel on the
-same data, with the same result.
+(``ops/kernels/rate_change.py``).  The port has no lane-packed layout:
+the chain always runs on the contiguous (B, T, C) tensor.
 """
 from __future__ import annotations
 
@@ -34,7 +29,6 @@ from .lora import LoraLayer
 from .snake import AliasFreeSnake
 
 SQRT_HALF = 1.0 / math.sqrt(2.0)
-ROWS_MAX_BATCH = 64  # the JAX package's packed-mode batch limit
 
 
 def film(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -321,24 +315,13 @@ class ConvBlock(nn.Module):
 
         fused = self._fused_eligible(h)
         t, c = h.shape[-2:]
-        p = max(1, 128 // c)
-        by_rows = fused and p > 1 and h.shape[0] <= ROWS_MAX_BATCH and t % p == 0
-        with spans.span("conv_block.chain", C=c, T=t,
-                        entry="rows" if by_rows else "main" if fused else "plain"):
+        with spans.span("conv_block.chain", C=c, T=t, entry="main" if fused else "plain"):
             if fused:
                 h = h.contiguous()
                 nc = None if noise_cond is None else noise_cond.contiguous()
                 ic = None if input_cond is None else input_cond.contiguous()
-                if by_rows:
-                    b = h.shape[0]
-                    rows = (b, t // p, p * c)
-                    v_out, cond_out = conv_block.fused_conv_chain_rows(
-                        h.view(rows), p, c, *self._chain_args(h.dtype), noise_cond=nc,
-                        input_cond_rows=None if ic is None else ic.view(rows))
-                    v_out, cond_out = v_out.view(b, t, c), cond_out.view(b, t, c)
-                else:
-                    v_out, cond_out = conv_block.fused_conv_chain(
-                        h, *self._chain_args(h.dtype), noise_cond=nc, input_cond=ic)
+                v_out, cond_out = conv_block.fused_conv_chain(
+                    h, *self._chain_args(h.dtype), noise_cond=nc, input_cond=ic)
             else:
                 cond_out = self.conv1(h)
                 if input_cond is not None:

@@ -2,8 +2,8 @@
 IO (WAV, FLAC and, where libmpg123 and libmp3lame load, MP3) and
 resampling, ``load_model`` on a reference-layout Lightning checkpoint
 against the JAX package's loader (the EMA-shadowed, folded weights, and
-``enhance`` through the kernel's rows entry against JAX's packed
-``enhance`` on the same noise within 2e-5), the ``enhance`` flag reflection,
+``enhance`` through the fused chain against JAX's packed ``enhance`` on the
+same noise within 2e-5), the ``enhance`` flag reflection,
 and the HTTP server: micro-batching, stereo, status codes, ``/stats``, the
 warm-up grid, and a served result equal to a direct ``enhance`` with the
 same generator state.
@@ -180,9 +180,9 @@ def jax_enhance_and_noise(model, params, mix, key, n_steps, shape, **kwargs):
 
 
 def test_load_model_matches_jax_loader(tmp_path, rng, monkeypatch, record_property):
-    """The loaded model's ``enhance``, whose ConvBlocks of 32 and 64
-    channels take the rows entry at batch 2, against JAX's packed
-    ``enhance`` of its own loaded model."""
+    """The loaded model's ``enhance``, whose ConvBlocks all take the fused
+    chain on (B, T, C) at batch 2, against JAX's packed ``enhance`` of its
+    own loaded model, which packs the blocks of 32 and 64 channels."""
     jm = jax_instantiate(SERVE_CFG)
     params = {name: jax.tree_util.tree_map(
         lambda s: (rng.uniform(-1, 1, s.shape) / np.sqrt(np.prod(s.shape[:-1])))
@@ -222,13 +222,13 @@ def test_load_model_matches_jax_loader(tmp_path, rng, monkeypatch, record_proper
     ref, noise = jax_enhance_and_noise(jm2, jparams, mix, jax.random.key(1), n_steps,
                                        (b, 324, 1), packed=True)
     calls = []
-    real = conv_block.fused_conv_chain_rows_reference
-    monkeypatch.setattr(conv_block, "fused_conv_chain_rows_reference",
+    real = conv_block.fused_conv_chain_reference
+    monkeypatch.setattr(conv_block, "fused_conv_chain_reference",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
     out = model.enhance(mix, n_steps=n_steps, noise=noise)
-    # the two down and two up blocks of each score pass and of the
-    # conditioner; the blocks of 128 channels take the unpacked entry
-    assert len(calls) == 4 * n_steps + 4
+    # the 6 ConvBlocks of each score pass and the conditioner's 10, the
+    # blocks of 32 and 64 channels among them, which JAX packs
+    assert len(calls) == 6 * n_steps + 10
     assert out.shape == (b, t) and torch.isfinite(out).all()
     record_property("max_abs_diff", float(np.abs(out.numpy() - ref).max()))
     np.testing.assert_allclose(out.numpy(), ref, atol=TOL, rtol=0)
@@ -338,8 +338,8 @@ def _concurrent_clips_share_one_batch(url, rng, monkeypatch):
     clips = [0.1 * np.sin(2 * np.pi * f * np.arange(t) / FS)
              + 0.02 * rng.standard_normal(t) for f in (220.0, 330.0, 440.0)]
     calls = []
-    real = conv_block.fused_conv_chain_rows_reference
-    monkeypatch.setattr(conv_block, "fused_conv_chain_rows_reference",
+    real = conv_block.fused_conv_chain_reference
+    monkeypatch.setattr(conv_block, "fused_conv_chain_reference",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
     before = _stats(url)
     results, go = {}, threading.Barrier(len(clips))
@@ -364,7 +364,7 @@ def _concurrent_clips_share_one_batch(url, rng, monkeypatch):
     assert after["requests"] - before["requests"] == 3
     assert after["batches"] - before["batches"] == 1  # one window, one batch
     assert after["errors"] == 0 and after["device_realtime_factor"] > 0
-    assert calls  # the rows entry ran the batch (4 rows <= 64)
+    assert calls  # the fused chain ran the batch
 
 
 def test_stereo_request_equals_direct_enhance(server, rng):

@@ -125,7 +125,7 @@ def test_one_enhance_nests_its_spans_on_their_host_ops(model):
     under = {p: sum(c["parent"] == p for c in chains) for p in parents}
     assert under == {p: blocks[n.split(".")[1]] for p, n in parents.items()}
     assert all(r["parent"] in parents for r in rates)
-    assert {c["attrs"]["entry"] for c in chains} <= {"main", "rows", "plain"}
+    assert {c["attrs"]["entry"] for c in chains} <= {"main", "plain"}
     assert {r["attrs"]["direction"] for r in rates} == {"up", "down"}
     assert {r["attrs"]["entry"] for r in rates} == {"plain"}  # the kernel runs on the card
     assert all(r["device_ms"] is None and r["end_ns"] >= r["start_ns"] for r in recs)

@@ -321,7 +321,7 @@ def test_folded_ema_validation_equals_unfolded(runs, monkeypatch, record_propert
     draws = jax_val_draws(n_val, runs["n_enh"])
     folded = pt.validate(2, draws=iter(draws))
     assert len(calls) == 5 * 24 * n_val + (14 + 10 * N_STEPS) * runs["n_enh"]
-    assert {"fused_conv_chain", "fused_conv_chain_rows"} <= set(calls)
+    assert set(calls) == {"fused_conv_chain"}
     calls.clear()
     monkeypatch.setattr(ptrainer, "fold_weight_norm", lambda m: m)
     unfolded = pt.validate(2, draws=iter(draws))

@@ -47,10 +47,14 @@ Phases, each of which raises (exit code != 0) on failure:
    plain version (TF32 off, within 1e-4 of max|plain|) at each rate-change
    shape of phases 3 and 3c at batch 128, and at each shape of an f32
    ``enhance`` of a 1 s bucket at the server's batches 1, 2 and 16; at each
-   the kernel, its plain version and the ``PReLUConv`` module it replaces
-   (cuDNN at PyTorch's default TF32, as the server ran it) timed alone,
-   weighted by launches per ``enhance``, beside its bound (bytes at 3.35
-   TB/s, products at 3xTF32's 495 / 3 TFLOP/s).  Then one traced f32
+   the kernel on every core the shape has (``rate_change.rate_cores``), its
+   plain version and the ``PReLUConv`` module it replaces (cuDNN at
+   PyTorch's default TF32, as the server ran it) timed alone, weighted by
+   launches per ``enhance``, beside its bound (bytes at 3.35 TB/s, products
+   at 3xTF32's 495 / 3 TFLOP/s).  The batch sweep that sets the source's
+   row thresholds: every 2 s shape with both cores at batch 1 (and a 1 s
+   clip), 2, 4, 8, 16 and 64, each core's device ms a launch from a CUDA
+   graph of 20, beside the table's choice.  Then one traced f32
    ``enhance`` at batch 128 x 2 s of UNIVERSE++ and of plain UNIVERSE, with
    the rate-change kernel and with the module (PyTorch's default TF32, as
    the benchmark runs): device events, busy time and traced wall per call.
@@ -553,6 +557,7 @@ def counted_enhance(model, mix, noise, dtype=None):
     conv_block.launches.clear()
     conv_block.core_launches.clear()
     rate_change.launches.clear()
+    rate_change.core_launches.clear()
     out = model.enhance(mix, n_steps=N_STEPS, noise=noise, compute_dtype=dtype)
     torch.cuda.synchronize()
     return out, dict(conv_block.launches)
@@ -589,6 +594,9 @@ def check_path(tag, counts, widths, route, out, t):
         log(f"[{tag}]   {entry:22s} {r} C={c:3d} T={t_c:5d} film={film:d} cond={cond:d}: "
             f"{n} launches")
     log(f"[{tag}]   cores: {core_counts()}")
+    log(f"[{tag}]   rate-change cores: " + ", ".join(
+        f"{core} {d} r={r} Cin={cin}: {n}"
+        for (core, d, r, cin), n in sorted(rate_change.core_launches.items())))
     if tuple(out.shape) != (out.shape[0], t) or not torch.isfinite(out).all():
         raise AssertionError(f"{tag}: enhance output has the wrong shape or is not finite")
     if launches != PATH_LAUNCHES:
@@ -717,10 +725,12 @@ def rate_module(direction, cin, cout, r, aa, seed):
 
 def rate_shapes(tag, rate_counts, batch):
     """The rate-change kernel at each (direction, Cin, Cout, r, T, low-pass)
-    of rate_counts (one enhance's launches) at this batch: against its plain
-    version (TF32 off, within TOL of max|plain|), then the kernel, the plain
-    version and the PReLUConv module alone (cuDNN at PyTorch's default
-    TF32), with its bound; one dict per shape, and their sums per enhance."""
+    of rate_counts (one enhance's launches) at this batch: on each core the
+    shape has, against its plain version (TF32 off, within TOL of
+    max|plain|), then each core, the plain version and the PReLUConv module
+    alone (cuDNN at PyTorch's default TF32), with its bound; one dict per
+    shape (``ms`` the table's core), and their sums per enhance (``ms`` on
+    the table's cores, ``<core>_ms`` at the shapes that have that core)."""
     from open_universe_tpu_torch.ops.kernels import rate_change
 
     shapes = []
@@ -728,44 +738,127 @@ def rate_shapes(tag, rate_counts, batch):
         conv, args = rate_module(direction, cin, cout, r, aa, seed=cin + r)
         g = torch.Generator(device=DEVICE).manual_seed(t + batch)
         x = torch.randn(batch, t, cin, generator=g, device=DEVICE)
+        table = rate_change.rate_core(direction, r, cin, rate_change.gemm_rows(direction, batch, t, r))
+        by_core, err, scale = {}, 0.0, 1.0
         with torch.no_grad():
-            got = rate_change.rate_change(x, *args)
             ref = rate_change.rate_change_reference(x, *args)
-            err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
-            if not (got.is_contiguous() and math.isfinite(err) and err <= TOL[torch.float32] * scale):
-                raise AssertionError(f"[{tag}] rate change {direction} {cin}->{cout} r={r} "
-                                     f"T={t} B={batch} aa={aa:d}: max|d| {err:.3e} of "
-                                     f"max|ref| {scale:.3e}")
-            ms = cuda_ms(lambda: rate_change.rate_change(x, *args), 20)
+            for core in rate_change.rate_cores(direction, r, cin):
+                got = rate_change.rate_change(x, *args, core=core)
+                e, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+                if not (got.is_contiguous() and math.isfinite(e) and e <= TOL[torch.float32] * scale):
+                    raise AssertionError(f"[{tag}] rate change {direction} {cin}->{cout} r={r} "
+                                         f"T={t} B={batch} aa={aa:d} {core}: max|d| {e:.3e} of "
+                                         f"max|ref| {scale:.3e}")
+                err = max(err, e)
+                by_core[core] = cuda_ms(lambda: rate_change.rate_change(x, *args, core=core), 20)
+            ms = by_core[table]
             plain_ms = cuda_ms(lambda: rate_change.rate_change_reference(x, *args), 3)
             tf32_flags(True)
             try:
                 module_ms = cuda_ms(lambda: conv(x), 10)
             finally:
                 tf32_flags(False)
-        moved = (x.numel() + got.numel() + 2 * args[0].numel() + cout) * 4
+        moved = (x.numel() + ref.numel() + 2 * args[0].numel() + cout) * 4
         t_bytes = moved / PEAK_BYTES_PER_S * 1e3
         t_ops = 2.0 * batch * t * cin * cout * (r if direction == "up" else 1) \
             / PEAK_FLOPS[torch.float32] * 1e3
         bound = max(t_bytes, t_ops)
         shapes.append(dict(direction=direction, Cin=cin, Cout=cout, r=r, T=t, low_pass=aa,
                            launches=n, max_abs_err=err, max_rel_err=err / scale, ms=ms,
-                           plain_ms=plain_ms, module_ms=module_ms, bytes_ms=t_bytes,
-                           ops_ms=t_ops, bound_share=bound / ms))
+                           core=table, ms_by_core=by_core, plain_ms=plain_ms,
+                           module_ms=module_ms, bytes_ms=t_bytes, ops_ms=t_ops,
+                           bound_share=bound / ms))
         log(f"[{tag}] {direction:4s} {cin:3d}->{cout:3d} r={r} T={t:5d} aa={aa:d} B={batch} "
-            f"x{n}: max|d| {err / scale:.2e} max|ref|; kernel {ms:.4f} ms ({bound / ms:.3f} of "
-            f"bound {bound:.4f} ms by {'bytes' if t_bytes >= t_ops else 'operations'}), "
-            f"plain {plain_ms:.4f}, module {module_ms:.4f}")
+            f"x{n}: max|d| {err / scale:.2e} max|ref|; kernel {ms:.4f} ms on {table} "
+            f"({bound / ms:.3f} of bound {bound:.4f} ms by "
+            f"{'bytes' if t_bytes >= t_ops else 'operations'}; "
+            + ", ".join(f"{c} {v:.4f} ({bound / v:.3f})" for c, v in by_core.items())
+            + f"), plain {plain_ms:.4f}, module {module_ms:.4f}")
         del conv, args, x, got, ref
     total = {k: sum(s[k] * s["launches"] for s in shapes)
              for k in ("ms", "plain_ms", "module_ms")}
     total["bound_ms"] = sum(max(s["bytes_ms"], s["ops_ms"]) * s["launches"] for s in shapes)
+    for core in ("mma_sync", "wgmma"):
+        has = [s for s in shapes if core in s["ms_by_core"]]
+        total[f"{core}_ms"] = sum(s["ms_by_core"][core] * s["launches"] for s in has)
+        total[f"{core}_launches"] = sum(s["launches"] for s in has)
+    total["table_launches"] = {core: sum(s["launches"] for s in shapes if s["core"] == core)
+                               for core in ("mma_sync", "wgmma")}
     total["max_abs_err"] = max(s["max_abs_err"] for s in shapes)
     total["max_rel_err"] = max(s["max_rel_err"] for s in shapes)
-    log(f"[{tag}] per enhance at batch {batch}: kernel {total['ms']:.3f} ms, module "
-        f"{total['module_ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, bound "
-        f"{total['bound_ms']:.3f} ms")
+    log(f"[{tag}] per enhance at batch {batch}: kernel {total['ms']:.3f} ms on the table's "
+        f"cores {total['table_launches']}, module {total['module_ms']:.3f} ms, plain "
+        f"{total['plain_ms']:.3f} ms, bound {total['bound_ms']:.3f} ms; mma.sync "
+        f"{total['mma_sync_ms']:.3f} ms ({total['mma_sync_launches']} launches), wgmma "
+        f"{total['wgmma_ms']:.3f} ms ({total['wgmma_launches']} launches)")
     return shapes, total
+
+
+def graph_ms(fn, n: int = 20) -> float:
+    """Device ms of one fn() from a CUDA graph of n calls (the best of three
+    replays), after an eager warm-up: small launches without the host's
+    launch gaps."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    best = math.inf
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / n)
+    return best
+
+
+RATE_SWEEP_BATCHES = (1, 2, 4, 8, 16, 64)
+
+
+def rate_sweep(rate_counts):
+    """Both cores' device ms a launch at each 2 s shape of rate_counts that
+    has both, at batch 1 of a 1 s clip and RATE_SWEEP_BATCHES of the 2 s
+    clip, beside the table's core: the sweep that sets RateWgTile's
+    MIN_ROWS.  Rows where the table's core is slower than the other by more
+    than 5 % are listed under "slower"."""
+    from open_universe_tpu_torch.ops.kernels import rate_change
+
+    rows, slower = [], []
+    for (direction, _, cin, cout, r, t, aa) in sorted(rate_counts):
+        if rate_change.rate_cores(direction, r, cin) != ("mma_sync", "wgmma"):
+            continue
+        _, args = rate_module(direction, cin, cout, r, aa, seed=cin + r)
+        for batch, tt in [(1, t // 2)] + [(b, t) for b in RATE_SWEEP_BATCHES]:
+            x = torch.randn(batch, tt, cin, device=DEVICE)
+            gemm_rows = rate_change.gemm_rows(direction, batch, tt, r)
+            with torch.no_grad():
+                ms = {core: graph_ms(lambda: rate_change.rate_change(x, *args, core=core))
+                      for core in ("mma_sync", "wgmma")}
+            table = rate_change.rate_core(direction, r, cin, gemm_rows)
+            row = dict(direction=direction, Cin=cin, r=r, low_pass=aa, B=batch, T=tt,
+                       rows=gemm_rows, table=table, **{f"{c}_ms": v for c, v in ms.items()})
+            rows.append(row)
+            other = min(ms.values())
+            if ms[table] > 1.05 * other:
+                slower.append(row)
+            log(f"[rate sweep] {direction:4s} {cin:3d} r={r} aa={aa:d} B={batch:3d} T={tt:5d} "
+                f"rows {gemm_rows:8d}: mma.sync {ms['mma_sync']:.4f} ms, wgmma "
+                f"{ms['wgmma']:.4f} ms (wgmma/mma.sync {ms['wgmma'] / ms['mma_sync']:.2f}); "
+                f"table {table}")
+            del x
+        del args
+    log(f"[rate sweep] {len(rows)} points, the table's core slower by > 5 % at {len(slower)}")
+    return dict(points=rows, slower=slower)
 
 
 def phase_rate_change(model, rate16, rate24):
@@ -778,7 +871,8 @@ def phase_rate_change(model, rate16, rate24):
     from open_universe_tpu_torch.utils.convert import fold_weight_norm
 
     result = {"batch128_16k": rate_shapes("rate 16k", rate16, TIMING_BATCH)[1],
-              "batch128_24k": rate_shapes("rate 24k", rate24, TIMING_BATCH)[1]}
+              "batch128_24k": rate_shapes("rate 24k", rate24, TIMING_BATCH)[1],
+              "sweep": rate_sweep({**rate16, **rate24})}
     t = int(BUCKET_S * FS)
     g = torch.Generator(device=DEVICE).manual_seed(21)
     mix = torch.randn(1, t, generator=g, device=DEVICE) * 0.05
@@ -4046,6 +4140,8 @@ def main() -> int:
         "universepp_24k": rate["batch128_24k"],
         # the shapes of a 1 s bucket at the server's batches
         "serving": {k: v for k, v in rate.items() if k.startswith("bucket1s")},
+        # the batch sweep of both cores (points where the table's is slower)
+        "sweep_slower": rate["sweep"]["slower"],
         # one traced f32 enhance at batch 128, with the kernel and the module
         "enhance_profiles": rate["profiles"],
     }]}

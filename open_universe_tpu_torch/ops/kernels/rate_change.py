@@ -13,26 +13,35 @@ on a block view of the rows: down (B, T/r, r Cin) @ (r Cin, Cout), up
 ``rate_change`` runs it in one launch of ``csrc/rate_change_tc.cu`` on a
 CUDA float32 tensor (3xTF32 on the tensor cores, the low-pass an exact
 float32 FIR inside the same kernel), and as ``rate_change_reference``, the
-same block-view math in PyTorch, on a CPU tensor.  Both take the conv's
+same block-view math in PyTorch, on a CPU tensor.  The kernel has two cores:
+``wgmma`` (warpgroup products over the whole output width, the weights
+staged by TMA's bulk copy) at the shapes of the source's table
+(``RateWgTile``), and ``mma_sync`` (``mma.sync.m16n8k8``) at the others and
+below a shape's row threshold (every shape has ``mma_sync``, which takes any
+Cin); ``rate_core`` gives a launch's core from its direction, r, Cin and
+GEMM rows, ``rate_cores`` the cores a shape has.  Both take the conv's
 weight in PyTorch's layout (down ``Conv1d`` (Cout, Cin, r), up
 ``ConvTranspose1d`` (Cin, Cout, r)), its bias (the module's manual bias
 where it low-passes), the single PReLU slope and the low-pass taps or None.
 
 ``launches`` counts each launch by (direction, route, Cin, Cout, r, T,
-antialiased); ``launches.clear()`` sets every count to 0.  The plain version
-is no launch.  ``conv_block.launches`` counts the chain kernel alone.
+antialiased), ``core_launches`` again by (core, direction, r, Cin);
+``clear()`` sets every count to 0.  The plain version is no launch.
+``conv_block.launches`` counts the chain kernel alone.
 """
 from __future__ import annotations
 
 import collections
 import ctypes
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from . import build
-from .conv_block import WIDTHS, mma_weights, mma_weights_tf32_layout
+from .conv_block import (CORES, WIDTHS, mma_weights, mma_weights_tf32_layout,
+                         wgmma_weights_tf32_layout)
 
 RATES = (2, 3, 4, 5, 8)
 DIRECTIONS = ("down", "up")
@@ -40,14 +49,45 @@ ROUTE = "f32_tensor_cores_3xtf32"
 SOURCE, SYMBOL = "rate_change_tc", "ou_rate_change_f32"
 
 launches: collections.Counter = collections.Counter()
+core_launches: collections.Counter = collections.Counter()
 
 
 def _kernel_fn():
     fn = getattr(build.load(SOURCE), SYMBOL)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+                       + [ctypes.c_int])
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _wgmma_min_rows(direction: str, r: int, cin: int,
+                    lib: Optional[ctypes.CDLL] = None) -> int:
+    """The source's ``RateWgTile<up, r, cin>::MIN_ROWS``, -1 where the shape
+    has no wgmma core (``lib``: another build of the source)."""
+    fn = (lib or build.load(SOURCE)).ou_rate_change_f32_min_rows
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int] * 3
+    return fn(int(direction == "up"), r, cin)
+
+
+def rate_cores(direction: str, r: int, cin: int,
+               lib: Optional[ctypes.CDLL] = None) -> Tuple[str, ...]:
+    """The cores the kernel has for a shape: mma_sync at every shape, wgmma
+    too where the source's table has an entry."""
+    return CORES if _wgmma_min_rows(direction, r, cin, lib) > 0 else ("mma_sync",)
+
+
+def gemm_rows(direction: str, b: int, t: int, r: int) -> int:
+    """The rows of a launch's GEMM: B ceil(T/r) down, B T up."""
+    return b * -(-t // r) if direction == "down" else b * t
+
+
+def rate_core(direction: str, r: int, cin: int, rows: int,
+              lib: Optional[ctypes.CDLL] = None) -> str:
+    """The core the source's table gives a launch of ``rows`` GEMM rows
+    (``gemm_rows``): wgmma from the shape's MIN_ROWS up."""
+    return "wgmma" if 0 < _wgmma_min_rows(direction, r, cin, lib) <= rows else "mma_sync"
 
 
 def takes(direction: str, x: torch.Tensor, w: torch.Tensor, r: int) -> bool:
@@ -74,27 +114,40 @@ def gemm_weights(w: torch.Tensor, direction: str) -> torch.Tensor:
     return w.permute(0, 2, 1).reshape(w.shape[0], -1)
 
 
-def kernel_weights(w: torch.Tensor, direction: str) -> torch.Tensor:
-    """``gemm_weights`` in the kernel's reduction order and the 3xTF32
-    fragment order (``conv_block.mma_weights_tf32_layout``, hi and lo halves).
-    The kernel's chunk rows hold each row's samples in channel groups of 8,
-    so a down block's reduction runs over (ci / 8, k, ci % 8).  Cached on
-    the weight tensor by ``conv_block.mma_weights``."""
-    return mma_weights(w, _LAYOUTS[direction])
+def kernel_weights(w: torch.Tensor, direction: str, core: str = "mma_sync") -> torch.Tensor:
+    """``gemm_weights`` in the kernel's order for ``core``, split into hi and
+    lo.  The kernel's chunk rows hold each row's samples in channel groups
+    of 8, so a down block's reduction runs over (ci / 8, k, ci % 8); the
+    wgmma core orders an up block's columns (co / 8, k, co % 8), so that a
+    block holds every output sample of its channels.  mma_sync takes the
+    fragment order (``conv_block.mma_weights_tf32_layout``), wgmma the
+    K-major stream (``conv_block.wgmma_weights_tf32_layout``).  Cached on the
+    weight tensor by ``conv_block.mma_weights``, per layout."""
+    return mma_weights(w, _LAYOUTS[(direction, core)])
 
 
-def _down_layout(w: torch.Tensor) -> torch.Tensor:
-    cout, cin, r = w.shape
-    m = gemm_weights(w.detach(), "down")
-    m = m.reshape(r, cin // 8, 8, cout).permute(1, 0, 2, 3).reshape(-1, cout)
-    return mma_weights_tf32_layout(m[None].contiguous())
+def kernel_matrix(w: torch.Tensor, direction: str, core: str = "mma_sync") -> torch.Tensor:
+    """``gemm_weights`` with its rows (down) or columns (up, wgmma) in the
+    kernel's order for ``core``."""
+    m = gemm_weights(w.detach(), direction)
+    if direction == "down":
+        cout, cin, r = w.shape
+        return m.reshape(r, cin // 8, 8, cout).permute(1, 0, 2, 3).reshape(-1, cout)
+    if core == "wgmma":
+        cin, cout, r = w.shape
+        return m.reshape(cin, r, cout // 8, 8).permute(0, 2, 1, 3).reshape(cin, -1)
+    return m
 
 
-def _up_layout(w: torch.Tensor) -> torch.Tensor:
-    return mma_weights_tf32_layout(gemm_weights(w.detach(), "up")[None].contiguous())
+def _layout(direction, core):
+    split = {"mma_sync": mma_weights_tf32_layout, "wgmma": wgmma_weights_tf32_layout}[core]
+
+    def layout(w: torch.Tensor) -> torch.Tensor:
+        return split(kernel_matrix(w, direction, core)[None].contiguous())
+    return layout
 
 
-_LAYOUTS = {"down": _down_layout, "up": _up_layout}
+_LAYOUTS = {(d, core): _layout(d, core) for d in DIRECTIONS for core in CORES}
 
 
 def _prelu(x: torch.Tensor, slope: torch.Tensor) -> torch.Tensor:
@@ -149,14 +202,27 @@ def _check(x, w, bias, slope, r, direction, taps):
         raise ValueError("x must be contiguous and 16-byte aligned")
 
 
+def launch_core(direction: str, r: int, cin: int, rows: int,
+                core: Optional[str] = None) -> str:
+    """The table's core for a launch of ``rows`` GEMM rows, or ``core`` if
+    the shape has it; a core it lacks raises."""
+    if core is None:
+        return rate_core(direction, r, cin, rows)
+    if core not in rate_cores(direction, r, cin):
+        raise RuntimeError(f"{ROUTE} has no {core} core for {direction} r={r} Cin={cin}; "
+                           f"it has {rate_cores(direction, r, cin)}")
+    return core
+
+
 def rate_change(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                 slope: torch.Tensor, r: int, direction: str,
-                taps: Optional[torch.Tensor] = None) -> torch.Tensor:
+                taps: Optional[torch.Tensor] = None, core: Optional[str] = None) -> torch.Tensor:
     """The rate change of x (B, T, Cin): ``direction`` "down" (w (Cout, Cin,
     r), output (B, ceil(T/r), Cout)) or "up" (w (Cin, Cout, r), output
     (B, T r, Cout)); bias (Cout,); one float32 PReLU slope; taps the
     2r + 1 low-pass taps or None.  A CPU tensor runs the plain version; a
-    CUDA tensor launches the kernel or raises."""
+    CUDA tensor launches the kernel, on the table's core or on ``core``
+    (one of ``rate_cores``: tests and timing force either), or raises."""
     if x.device.type == "cpu":
         return rate_change_reference(x, w, bias, slope, r, direction, taps)
     if x.device.type != "cuda":
@@ -164,7 +230,8 @@ def rate_change(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     _check(x, w, bias, slope, r, direction, taps)
     b, t, cin = x.shape
     cout = w.shape[0] if direction == "down" else w.shape[1]
-    wk = kernel_weights(w, direction)
+    core = launch_core(direction, r, cin, gemm_rows(direction, b, t, r), core)
+    wk = kernel_weights(w, direction, core)
     shape = (b, -(-t // r), cout) if direction == "down" else (b, t * r, cout)
     out = torch.empty(shape, dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
@@ -172,8 +239,11 @@ def rate_change(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
         err = _kernel_fn()(
             x.data_ptr(), wk.data_ptr(), bias.data_ptr(), slope.data_ptr(),
             None if taps is None else taps.data_ptr(),
-            out.data_ptr(), b, t, cin, cout, r, int(direction == "up"), stream)
+            out.data_ptr(), b, t, cin, cout, r, int(direction == "up"), stream,
+            CORES.index(core))
     if err != 0:
-        raise RuntimeError(f"rate_change kernel ({ROUTE}) launch failed: cudaError_t {err}")
+        raise RuntimeError(f"rate_change kernel ({ROUTE}, {core}) launch failed: "
+                           f"cudaError_t {err}")
     launches[(direction, ROUTE, cin, cout, r, t, taps is not None)] += 1
+    core_launches[(core, direction, r, cin)] += 1
     return out

@@ -1,16 +1,19 @@
 """The ConvBlock rate-change kernel module (``ops/kernels/rate_change.py``).
 
 On the CPU: the wrapper's plain block-view version against the unfused
-``PReLUConv`` it replaces, the kernel's reduction order, and the ConvBlock's
-dispatch (the kernel's route forced onto the CPU's plain version, and today's
-path under autograd, for LoRA, bf16 and the CPU).  The CUDA kernel builds
-and runs only on the card: the tests marked ``card`` hold it against the
-plain version there, at every rate-change shape of the benchmark's two
-cells, and count its launches per ``enhance``
+``PReLUConv`` it replaces, the kernel's reduction order and weight layouts,
+the source table's rule for each launch's core, and the ConvBlock's dispatch
+(the kernel's route forced onto the CPU's plain version, and today's path
+under autograd, for LoRA, bf16 and the CPU).  The CUDA kernel builds and
+runs only on the card: the tests marked ``card`` hold each of its cores
+against the plain version there, at every rate-change shape of the
+benchmark's cells, and count its launches and cores per ``enhance``
 (``python -m pytest --noconftest -m card tests/test_torch_rate_change.py``).
 """
+import collections
 import contextlib
 import math
+import re
 
 import numpy as np
 import pytest
@@ -22,7 +25,7 @@ from open_universe_tpu_torch.nn.blocks import ConvBlock, PReLUConv
 from open_universe_tpu_torch.nn.layers import init_weights
 from open_universe_tpu_torch.nn.lora import LoraLayer
 from open_universe_tpu_torch.ops import kernels
-from open_universe_tpu_torch.ops.kernels import conv_block, rate_change
+from open_universe_tpu_torch.ops.kernels import build, conv_block, rate_change
 from open_universe_tpu_torch.utils.convert import fold_weight_norm
 
 TOL = 2e-5       # plain block view against the module, float32 on the CPU
@@ -134,6 +137,76 @@ def test_kernel_reduction_order_and_weight_cache():
     np.testing.assert_array_equal(again.numpy(), 2.0 * first.numpy())
 
 
+# RateWgTile<up, r, cin> entries of the source: the shapes with a wgmma core
+_WG_ENTRY = re.compile(r"struct RateWgTile<(true|false), (\d+), (\d+)> \{[^}]*MIN_ROWS = (\d+);")
+
+
+def _wgmma_table():
+    src = (build.CSRC_DIR / f"{rate_change.SOURCE}.cu").read_text()
+    return {("up" if up == "true" else "down", int(r), int(cin)): int(least)
+            for up, r, cin, least in _WG_ENTRY.findall(src)}
+
+
+@pytest.mark.parametrize("direction", rate_change.DIRECTIONS)
+def test_rate_cores_follow_the_table(monkeypatch, direction):
+    """A launch's core comes from the source's RateWgTile, read through the
+    built library (here the source's text stands in for it): a shape without
+    an entry has only mma_sync, one with an entry both, wgmma from its
+    MIN_ROWS (at least 1) GEMM rows up; forcing a core the shape lacks raises
+    before any launch."""
+    table = _wgmma_table()
+    assert table and all(d in rate_change.DIRECTIONS and r in rate_change.RATES
+                         and least >= 1 for (d, r, _), least in table.items())
+    monkeypatch.setattr(rate_change, "_wgmma_min_rows",
+                        lambda d, r, cin, lib=None: table.get((d, r, cin), -1))
+    cins = [c for c in conv_block.WIDTHS
+            if (2 * c if direction == "down" else c // 2) in conv_block.WIDTHS]
+    for r in rate_change.RATES:
+        for cin in cins:
+            least = table.get((direction, r, cin), -1)
+            cores = rate_change.rate_cores(direction, r, cin)
+            assert cores == (("mma_sync",) if least < 0 else conv_block.CORES)
+            for rows in (1, max(least - 1, 1), max(least, 1), 128 * 32160):
+                core = rate_change.rate_core(direction, r, cin, rows)
+                assert core in cores
+                assert (core == "wgmma") == (1 <= least <= rows)
+                assert rate_change.launch_core(direction, r, cin, rows) == core
+            for core in conv_block.CORES:
+                if core in cores:
+                    assert rate_change.launch_core(direction, r, cin, 1, core) == core
+                else:
+                    with pytest.raises(RuntimeError, match=f"no {core} core"):
+                        rate_change.launch_core(direction, r, cin, 1, core)
+
+
+@pytest.mark.parametrize("direction", rate_change.DIRECTIONS)
+def test_wgmma_weights_hold_the_kernel_order(direction):
+    """The wgmma core's weights are the block view's matrix in the kernel's
+    order (down rows (ci / 8, k, ci % 8); up columns (co / 8, k, co % 8), so
+    that an n8 tile is one output sample of 8 channels and a block's columns
+    hold every sample of its channels), split into hi and lo in wgmma's
+    K-major stream; each layout is cached apart on the weight tensor."""
+    r, cin, cout = (3, 16, 32) if direction == "down" else (3, 32, 16)
+    w = _module(direction, cin, cout, r, False).conv.weight
+    with torch.no_grad():
+        got = rate_change.kernel_weights(w, direction, "wgmma")
+        assert rate_change.kernel_weights(w, direction, "wgmma") is got
+        assert rate_change.kernel_weights(w, direction, "mma_sync") is not got
+        m = rate_change.gemm_weights(w, direction)
+        k, n = m.shape
+        # (1, K/8, part, N/8, kh, n % 8, kk) -> (K, N), hi + lo
+        back = got.reshape(k // 8, 2, n // 8, 2, 8, 4).permute(1, 0, 3, 5, 2, 4).reshape(2, k, n)
+        assert torch.equal(back[0], conv_block.tf32_round(back[0]))
+        want = rate_change.kernel_matrix(w, direction, "wgmma")
+        torch.testing.assert_close(back[0] + back[1], want, rtol=0, atol=1e-6 * want.abs().max())
+        if direction == "up":  # column (co / 8, k, co % 8) is sample k of channel co
+            for co, kk in ((0, 0), (9, 2), (15, 1)):
+                col = ((co // 8) * r + kk) * 8 + co % 8
+                torch.testing.assert_close(want[:, col], w.detach()[:, co, kk])
+        else:
+            torch.testing.assert_close(want, rate_change.kernel_matrix(w, direction, "mma_sync"))
+
+
 class _OnCard:
     """A CPU tensor's shape and type, on the card: lets the dispatch rules
     route a CPU tensor to the wrapper, which then runs its plain version."""
@@ -241,29 +314,40 @@ SHAPES_24K = [("down", 48, 96, 2, 48000), ("down", 96, 192, 3, 24000),
               ("up", 192, 96, 3, 8000), ("up", 96, 48, 2, 24000)]
 CARD_CASES = ([(s, aa, b) for s in SHAPES_16K for aa in (False, True) for b in (2, 128)]
               + [(s, aa, 2) for s in SHAPES_24K for aa in (False, True)]
+              + [(s, aa, 128) for s in SHAPES_24K if s[3] >= 3 for aa in (False, True)]
               + [(("down", 64, 128, 4, 1001), True, 2), (("down", 32, 64, 2, 77), False, 3),
                  (("up", 512, 256, 5, 7), True, 3), (("up", 64, 32, 2, 129), True, 2)])
 
 
 @pytest.mark.card
+@pytest.mark.parametrize("core", conv_block.CORES)
 @pytest.mark.parametrize("shape,aa,b", CARD_CASES)
-def test_kernel_matches_plain_version_on_card(card, shape, aa, b):
-    """The kernel against its plain version on the card, within the 3xTF32
-    float32 gate, rows that differ, contiguous outputs, one counted launch."""
+def test_kernel_matches_plain_version_on_card(card, shape, aa, b, core):
+    """The kernel on ``core`` against its plain version on the card, within
+    the 3xTF32 float32 gate, rows that differ, contiguous outputs, one
+    counted launch under its key and its core; where the source's table
+    gives the shape no such core, forcing it raises and launches nothing."""
     direction, cin, cout, r, t = shape
     conv = _module(direction, cin, cout, r, aa, seed=cin + r).to(card)
     x = _x(b, t, cin, seed=t + b, device=card)
     rate_change.launches.clear()
+    rate_change.core_launches.clear()
+    if core not in rate_change.rate_cores(direction, r, cin):
+        with pytest.raises(RuntimeError, match=f"no {core} core"):
+            rate_change.rate_change(x, *_args(conv, r, direction), core=core)
+        assert not rate_change.launches and not rate_change.core_launches
+        return
     with torch.no_grad():
-        got = rate_change.rate_change(x, *_args(conv, r, direction))
+        got = rate_change.rate_change(x, *_args(conv, r, direction), core=core)
         torch.cuda.synchronize()
         ref = rate_change.rate_change_reference(x, *_args(conv, r, direction))
     assert got.is_contiguous()
     rel = _close(got, ref, CARD_TOL)
-    print(f"[rate_change] {direction} {cin}->{cout} r={r} T={t} B={b} aa={aa:d}: "
+    print(f"[rate_change] {direction} {cin}->{cout} r={r} T={t} B={b} aa={aa:d} {core}: "
           f"max|d| = {rel:.2e} max|ref|")
     assert dict(rate_change.launches) == {
         (direction, rate_change.ROUTE, cin, cout, r, t, aa): 1}
+    assert dict(rate_change.core_launches) == {(core, direction, r, cin): 1}
 
 
 @pytest.mark.card
@@ -271,14 +355,22 @@ def test_kernel_matches_plain_version_on_card(card, shape, aa, b):
 def test_enhance_launches_on_card(card, preset, aa):
     """One f32 ``enhance`` at batch 2 x 2 s makes 72 rate-change launches:
     8 score passes and the conditioner, 4 down and 4 up each; UNIVERSE++
-    low-passes the 64 of its score network."""
+    low-passes the 64 of its score network; each launch runs the core the
+    source's table gives its shape and rows."""
     model = fold_weight_norm(getattr(presets, preset)(device=card, seed=0)).eval()
     mix = _x(2, 32000, 1, seed=5, device=card)[..., 0] * 0.1
     rate_change.launches.clear()
+    rate_change.core_launches.clear()
     out = model.enhance(mix, n_steps=8, generator=torch.Generator(card).manual_seed(0))
     torch.cuda.synchronize()
     assert torch.isfinite(out).all()
     n = sum(rate_change.launches.values())
     low_passed = sum(v for k, v in rate_change.launches.items() if k[-1])
-    print(f"[rate_change] {preset} enhance: {n} launches, {low_passed} low-passed")
+    want = collections.Counter()
+    for (direction, _, cin, _, r, t, _), k in rate_change.launches.items():
+        rows = rate_change.gemm_rows(direction, 2, t, r)
+        want[(rate_change.rate_core(direction, r, cin, rows), direction, r, cin)] += k
+    print(f"[rate_change] {preset} enhance: {n} launches, {low_passed} low-passed, "
+          f"cores {dict(rate_change.core_launches)}")
     assert (n, low_passed) == (72, aa)
+    assert rate_change.core_launches == want
